@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of bee_code_interpreter_fs_tpu's model path, for
+NVIDIA Hopper (sm_90a).
+
+The JAX package stays the reference; this package imports nothing of it
+(nor JAX itself) and keeps its own copy of whatever it needs. Every entry
+point that makes state takes a ``device`` argument whose default is the
+card; without a card it raises instead of running on the CPU
+(``device="cpu"`` asks for the CPU explicitly, as the tests do).
+
+Layout:
+- ``models/config.py``  LlamaConfig and its presets.
+- ``models/llama.py``   dense single-device Llama: forward (plain or flash
+                        attention), KV-cached prefill/decode, greedy
+                        generation.
+- ``models/convert.py`` JAX parameter pytree (as numpy) -> the port's module.
+- ``ops/flash_attention.py`` causal flash attention: the hand-written
+                        CUDA kernel (``csrc/flash_attention.cu``) on CUDA
+                        tensors, its plain PyTorch tile recurrence on CPU
+                        tensors.
+- ``entry.py``          entry(): the tiny-config forward and its arguments.
+"""
+
+from bee_code_interpreter_fs_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,413 @@
+"""Dense single-device Llama in PyTorch: the counterpart of
+bee_code_interpreter_fs_tpu/models/llama.py for the paths this package runs.
+
+Weights keep the reference's [in, out] layout (``h @ W``), bf16 (or the
+config's dtype) on the matmul path and f32 norm weights. The reference's
+stacked [n_layers, ...] leaves become one ``Block`` per layer in a
+``ModuleList``, and its layer scan a loop over them. Forward attention is
+"plain" (dense scores, rounded in the model dtype as the reference does)
+or "flash" (ops/flash_attention.py: the CUDA kernel on the card). The
+cached decode path (prefill / decode_chunk / decode_step) uses plain
+attention, as the reference does.
+
+The KV cache is updated IN PLACE: prefill and decode_chunk write their K/V
+into the cache tensors they are given and return that same dict (JAX
+donates the cache instead). A write past the cache's end raises; it is
+never clamped.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from bee_code_interpreter_fs_tpu_torch.device import resolve_device
+from bee_code_interpreter_fs_tpu_torch.models.config import (
+    LlamaConfig,
+    check_supported,
+)
+from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import flash_attention
+
+MASK_VALUE = -1e30
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def model_dtype(cfg: LlamaConfig) -> torch.dtype:
+    try:
+        return _DTYPES[cfg.dtype]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {cfg.dtype!r}") from None
+
+
+def _weight(*shape, dtype, device):
+    return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Block(nn.Module):
+    """One decoder layer's weights (the reference's `layers` leaves at one
+    layer index)."""
+
+    def __init__(self, cfg: LlamaConfig, dtype, device):
+        super().__init__()
+        dim, hd = cfg.dim, cfg.head_dim
+        nh, nkv, hidden = cfg.n_heads, cfg.n_kv_heads, cfg.hidden_dim
+        self.attn_norm = _weight(dim, dtype=torch.float32, device=device)
+        self.wq = _weight(dim, nh * hd, dtype=dtype, device=device)
+        self.wk = _weight(dim, nkv * hd, dtype=dtype, device=device)
+        self.wv = _weight(dim, nkv * hd, dtype=dtype, device=device)
+        self.wo = _weight(nh * hd, dim, dtype=dtype, device=device)
+        self.mlp_norm = _weight(dim, dtype=torch.float32, device=device)
+        self.w_gate = _weight(dim, hidden, dtype=dtype, device=device)
+        self.w_up = _weight(dim, hidden, dtype=dtype, device=device)
+        self.w_down = _weight(hidden, dim, dtype=dtype, device=device)
+
+
+class Llama(nn.Module):
+    """The model's parameters: embed, per-layer blocks, final norm, head
+    (run them with ``forward``)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        dtype = model_dtype(cfg)
+        self.embed = _weight(cfg.vocab_size, cfg.dim, dtype=dtype, device=device)
+        self.layers = nn.ModuleList(
+            Block(cfg, dtype, device) for _ in range(cfg.n_layers)
+        )
+        self.final_norm = _weight(cfg.dim, dtype=torch.float32, device=device)
+        self.lm_head = _weight(cfg.dim, cfg.vocab_size, dtype=dtype, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# ---------------------------------------------------------------- params
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, device=None) -> Llama:
+    """Random weights (counterpart of the reference's init_params): normal
+    draws scaled by fan_in**-0.5, made in f32 and cast to the model dtype;
+    norm weights are f32 ones. `generator` must live on `device`. Torch and
+    JAX give different numbers from one seed; parity tests convert JAX's
+    weights instead (models/convert.py)."""
+    model = Llama(cfg, device)
+    dev = model.device
+
+    def dense(param, fan_in):
+        draw = torch.randn(param.shape, generator=generator,
+                           dtype=torch.float32, device=dev)
+        param.copy_(draw * fan_in ** -0.5)
+
+    with torch.no_grad():
+        dense(model.embed, 1.0)
+        for blk in model.layers:
+            blk.attn_norm.fill_(1.0)
+            dense(blk.wq, cfg.dim)
+            dense(blk.wk, cfg.dim)
+            dense(blk.wv, cfg.dim)
+            dense(blk.wo, cfg.n_heads * cfg.head_dim)
+            blk.mlp_norm.fill_(1.0)
+            dense(blk.w_gate, cfg.dim)
+            dense(blk.w_up, cfg.dim)
+            dense(blk.w_down, cfg.hidden_dim)
+        model.final_norm.fill_(1.0)
+        dense(model.lm_head, cfg.dim)
+    return model
+
+
+# ---------------------------------------------------------------- forward
+
+def _rms_norm(x, w, eps):
+    """f32 statistics, cast back to x's dtype, THEN scaled by w in x's dtype
+    (the norm weights are f32 while activations may be bf16)."""
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * rms).to(x.dtype) * w.to(x.dtype)
+
+
+def _rope(x, theta, offset=0):
+    """Rotary embedding over [b, t, h, d] on INTERLEAVED lane pairs
+    (x[..., 0::2], x[..., 1::2]). `offset` shifts positions: an int, or a
+    [b] tensor (each row at its own position). cos and sin are cast to x's
+    dtype before the multiply."""
+    b, t, h, d = x.shape
+    freqs = theta ** (
+        -torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+    )
+    if isinstance(offset, torch.Tensor):
+        off = offset.to(device=x.device, dtype=torch.float32).reshape(-1)
+    else:  # filled on the device: no host-to-device copy per call
+        off = torch.full((1,), float(offset), dtype=torch.float32, device=x.device)
+    positions = (
+        torch.arange(t, dtype=torch.float32, device=x.device)[None, :]
+        + off[:, None]
+    )
+    angles = positions[..., None] * freqs[None, None, :]  # [b|1, t, d/2]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(b, t, h, d)
+
+
+def _plain_causal_attention(q, k, v, scale, window: int = 0, sinks: int = 0):
+    """Dense causal attention. The score product runs in the input dtype
+    (so bf16 scores are rounded) and only then goes to f32, as the
+    reference does; the flash path scores in f32 and so differs by design
+    in bf16."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    t = q.shape[1]
+    ones = torch.ones((t, t), dtype=torch.bool, device=q.device)
+    mask = torch.tril(ones)
+    if window > 0:
+        visible = torch.tril(ones, -window).logical_not()
+        if sinks > 0:
+            visible = visible | (torch.arange(t, device=q.device) < sinks)[None, :]
+        mask = mask & visible
+    s = torch.where(mask[None, None], s, MASK_VALUE)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _expand_gqa(k, v, n_heads):
+    """Repeat kv heads up to n_heads: head i reads kv head i // rep."""
+    rep = n_heads // k.shape[2]
+    if rep == 1:
+        return k, v
+    return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
+
+
+def _mm(h, w, dt):
+    """``h @ W`` for a dense weight (the dense branch of the reference's
+    _w/_mm; quantized and LoRA leaves come with later slices)."""
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            "quantized and LoRA weight leaves come with the models/quant.py "
+            "slice of the port"
+        )
+    return h @ w.to(dt)
+
+
+def transformer_block(x, lp: Block, cfg: LlamaConfig, attn_fn, *, rope_offset=0):
+    """One pre-norm decoder block. `attn_fn(q, k, v)` receives UNexpanded kv
+    heads ([b, t, n_kv_heads, hd])."""
+    b, t, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dt = x.dtype
+    h = _rms_norm(x, lp.attn_norm, cfg.norm_eps)
+    q = _mm(h, lp.wq, dt).reshape(b, t, nh, hd)
+    k = _mm(h, lp.wk, dt).reshape(b, t, nkv, hd)
+    v = _mm(h, lp.wv, dt).reshape(b, t, nkv, hd)
+    q = _rope(q, cfg.rope_theta, offset=rope_offset)
+    k = _rope(k, cfg.rope_theta, offset=rope_offset)
+    attn = attn_fn(q, k, v)
+    x = x + _mm(attn.reshape(b, t, nh * hd), lp.wo, dt)
+
+    h = _rms_norm(x, lp.mlp_norm, cfg.norm_eps)
+    gate = F.silu(_mm(h, lp.w_gate, dt))
+    return x + _mm(gate * _mm(h, lp.w_up, dt), lp.w_down, dt)
+
+
+def _logits(params: Llama, x, cfg: LlamaConfig):
+    x = _rms_norm(x, params.final_norm, cfg.norm_eps)
+    return (x @ params.lm_head.to(x.dtype)).float()
+
+
+def _embed(params: Llama, tokens, dt):
+    tokens = torch.as_tensor(tokens, device=params.device)
+    return params.embed.to(dt)[tokens.long()]
+
+
+def forward(params: Llama, tokens, cfg: LlamaConfig, *, mesh=None):
+    """Token ids [b, t] -> logits [b, t, vocab] (float32), on the params'
+    device. `attn_impl="flash"` runs ops/flash_attention.py (the CUDA kernel
+    on the card, once per layer)."""
+    check_supported(cfg)
+    if mesh is not None:
+        raise NotImplementedError(
+            "meshes (tensor/sequence parallelism, ring and Ulysses attention) "
+            "come with the parallel slice of the port"
+        )
+    dt = model_dtype(cfg)
+    nh = cfg.n_heads
+    scale = cfg.head_dim ** -0.5
+    if cfg.attn_impl == "flash":
+        def attn_fn(q, k, v):
+            return flash_attention(
+                q, *_expand_gqa(k, v, nh), scale=scale,
+                window=cfg.sliding_window, sinks=cfg.attention_sinks,
+            )
+    else:
+        def attn_fn(q, k, v):
+            return _plain_causal_attention(
+                q, *_expand_gqa(k, v, nh), scale,
+                window=cfg.sliding_window, sinks=cfg.attention_sinks,
+            )
+
+    x = _embed(params, tokens, dt)
+    for lp in params.layers:
+        x = transformer_block(x, lp, cfg, attn_fn)
+    return _logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------- decoding
+
+def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int | None = None,
+               device=None):
+    """Stacked per-layer KV cache with unexpanded GQA heads:
+    {"k"|"v": [L, b, max_len, n_kv, head_dim]} zeros in the model dtype."""
+    max_len = max_len or cfg.max_seq_len
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    dt = model_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def resolve_cache_len(needed: int, max_len: int | None, *,
+                      what: str = "prompt+new") -> int:
+    """Default max_len to exactly what the generation needs; refuse an
+    explicit max_len that cannot hold it."""
+    max_len = max_len or needed
+    if max_len < needed:
+        raise ValueError(
+            f"max_len={max_len} < {what}={needed}: cache too small"
+        )
+    return max_len
+
+
+def decode_valid_mask(q_pos, max_len, cfg: LlamaConfig):
+    """Which cache positions queries at positions `q_pos` [n] may attend:
+    the causal prefix, minus what a sliding window retires, plus sinks.
+    Returns bool [n, max_len]."""
+    q_pos = torch.as_tensor(q_pos)
+    cols = torch.arange(max_len, device=q_pos.device)[None, :]
+    valid = cols <= q_pos[:, None]
+    if cfg.sliding_window > 0:
+        visible = cols > q_pos[:, None] - cfg.sliding_window
+        if cfg.attention_sinks > 0:
+            visible = visible | (cols < cfg.attention_sinks)
+        valid = valid & visible
+    return valid
+
+
+def _cached_gqa_attention(q, keys, values, valid, scale):
+    """Attention of q [b, t, nh, hd] against an UNexpanded cache
+    [b, max, nkv, hd] through a grouped contraction (query head i reads kv
+    head i // rep), with no copy of the cache."""
+    b, t, nh, hd = q.shape
+    nkv = keys.shape[2]
+    rep = nh // nkv
+    qg = q.reshape(b, t, nkv, rep, hd)
+    s = torch.einsum("btgrd,bkgd->bgrtk", qg, keys).float() * scale
+    s = torch.where(valid, s, MASK_VALUE)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    attn = torch.einsum("bgrtk,bkgd->btgrd", p, values)
+    return attn.reshape(b, t, nh, hd)
+
+
+def _check_write(pos: int, s: int, max_len: int):
+    if pos < 0 or pos + s > max_len:
+        raise ValueError(
+            f"cache write at positions {pos}..{pos + s - 1} is past the "
+            f"cache's max_len {max_len}"
+        )
+
+
+def prefill(params: Llama, tokens, cache, cfg: LlamaConfig):
+    """The whole prompt in one pass, writing every K/V position into the
+    cache (in place). Returns (last-position logits [b, vocab] f32, cache)."""
+    check_supported(cfg)
+    dt = model_dtype(cfg)
+    scale = cfg.head_dim ** -0.5
+    t = tokens.shape[1]
+    if t > cache["k"].shape[2]:
+        raise ValueError(
+            f"prompt length {t} exceeds cache max_len {cache['k'].shape[2]}"
+        )
+    x = _embed(params, tokens, dt)
+    for i, lp in enumerate(params.layers):
+        def attn_fn(q, k, v, i=i):
+            cache["k"][i, :, :t] = k
+            cache["v"][i, :, :t] = v
+            return _plain_causal_attention(
+                q, *_expand_gqa(k, v, cfg.n_heads), scale,
+                window=cfg.sliding_window, sinks=cfg.attention_sinks,
+            )
+
+        x = transformer_block(x, lp, cfg, attn_fn)
+    return _logits(params, x[:, t - 1], cfg), cache
+
+
+def decode_chunk(params: Llama, tokens, cache, pos: int, cfg: LlamaConfig):
+    """`s` tokens at positions pos..pos+s-1 against the cache (written in
+    place): each attends to every cache position up to itself. Returns
+    (logits [b, s, vocab] f32, cache)."""
+    check_supported(cfg)
+    dt = model_dtype(cfg)
+    scale = cfg.head_dim ** -0.5
+    s = tokens.shape[1]
+    max_len = cache["k"].shape[2]
+    pos = int(pos)
+    _check_write(pos, s, max_len)
+    q_pos = pos + torch.arange(s, device=cache["k"].device)
+    valid = decode_valid_mask(q_pos, max_len, cfg)[None, None, None]
+    x = _embed(params, tokens, dt)
+    for i, lp in enumerate(params.layers):
+        def attn_fn(q, k, v, i=i):
+            cache["k"][i, :, pos:pos + s] = k
+            cache["v"][i, :, pos:pos + s] = v
+            return _cached_gqa_attention(q, cache["k"][i], cache["v"][i],
+                                         valid, scale)
+
+        x = transformer_block(x, lp, cfg, attn_fn, rope_offset=pos)
+    return _logits(params, x, cfg), cache
+
+
+def decode_step(params: Llama, tokens, cache, pos: int, cfg: LlamaConfig):
+    """One token per row at position `pos`: decode_chunk with s=1.
+    Returns (logits [b, vocab] f32, cache)."""
+    logits, cache = decode_chunk(params, tokens, cache, pos, cfg)
+    return logits[:, 0], cache
+
+
+@torch.inference_mode()
+def greedy_generate(params: Llama, prompt_tokens, cfg: LlamaConfig, *,
+                    max_new_tokens: int, max_len: int | None = None,
+                    eos_id=None):
+    """Greedy decode: one batched prefill, then one decode step per new
+    token, each picking the first maximal logit. Returns int32
+    [b, prompt + max_new_tokens] on the params' device.
+
+    `eos_id` (None = off): a row that emits it has every later position
+    pinned to eos_id (the shape stays fixed, as in the reference)."""
+    prompt = torch.as_tensor(prompt_tokens, device=params.device).to(torch.int32)
+    b, prompt_len = prompt.shape
+    max_len = resolve_cache_len(prompt_len + max_new_tokens, max_len)
+    if max_new_tokens == 0:
+        return prompt
+    cache = init_cache(cfg, b, max_len, device=params.device)
+    logits, cache = prefill(params, prompt, cache, cfg)
+    done = torch.zeros(b, dtype=torch.bool, device=params.device)
+    new_tokens = []
+    for i in range(max_new_tokens):
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        if eos_id is not None:
+            token = torch.where(done, torch.full_like(token, eos_id), token)
+            done = done | (token == eos_id)
+        new_tokens.append(token)
+        if i + 1 < max_new_tokens:  # the last token's logits are unused
+            logits, cache = decode_step(params, token[:, None], cache,
+                                        prompt_len + i, cfg)
+    return torch.cat([prompt, torch.stack(new_tokens, dim=1)], dim=1)
+
+
+def generate(params: Llama, prompt_tokens, cfg: LlamaConfig, *,
+             max_new_tokens: int, max_len: int | None = None):
+    """Greedy autoregressive generation without eos handling. Returns int32
+    [b, prompt + max_new_tokens]."""
+    return greedy_generate(params, prompt_tokens, cfg,
+                           max_new_tokens=max_new_tokens, max_len=max_len)
