@@ -1,4 +1,4 @@
-"""Dense single-device Llama in PyTorch: the counterpart of
+"""Dense Llama in PyTorch: the counterpart of
 bee_code_interpreter_fs_tpu/models/llama.py for the paths this package runs.
 
 Weights keep the reference's [in, out] layout (``h @ W``), bf16 (or the
@@ -6,7 +6,8 @@ config's dtype) on the matmul path and f32 norm weights. The reference's
 stacked [n_layers, ...] leaves become one ``Block`` per layer in a
 ``ModuleList``, and its layer scan a loop over them. Forward attention is
 "plain" (dense scores, rounded in the model dtype as the reference does)
-or "flash" (ops/flash_attention.py: the CUDA kernel on the card). The
+or "flash" (ops/flash_attention.py: the CUDA kernel on the card); a mesh
+with sp > 1 runs it sequence-parallel (ring or Ulysses, parallel/). The
 cached decode path (prefill / decode_chunk / decode_step) uses plain
 attention, as the reference does.
 
@@ -28,6 +29,9 @@ from bee_code_interpreter_fs_tpu_torch.models.config import (
     check_supported,
 )
 from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import flash_attention
+from bee_code_interpreter_fs_tpu_torch.parallel.mesh import Mesh
+from bee_code_interpreter_fs_tpu_torch.parallel.ring_attention import ring_attention
+from bee_code_interpreter_fs_tpu_torch.parallel.ulysses import ulysses_attention
 
 MASK_VALUE = -1e30
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -221,20 +225,47 @@ def _embed(params: Llama, tokens, dt):
     return params.embed.to(dt)[tokens.long()]
 
 
-def forward(params: Llama, tokens, cfg: LlamaConfig, *, mesh=None):
+def forward(params: Llama, tokens, cfg: LlamaConfig, *, mesh: Mesh | None = None):
     """Token ids [b, t] -> logits [b, t, vocab] (float32), on the params'
     device. `attn_impl="flash"` runs ops/flash_attention.py (the CUDA kernel
-    on the card, once per layer)."""
+    on the card, once per layer).
+
+    If `mesh` (parallel.mesh.Mesh) has an "sp" axis of size > 1, attention
+    runs sequence-parallel with the strategy cfg.sp_impl selects: "ring"
+    (K/V chunks around the ring; with flash, the ring-step kernel once per
+    live (rank, step)) or "ulysses" (head/sequence regroup, full-sequence
+    attention per rank; with flash, the flash kernel once per rank). A mesh
+    with sp = 1 is the single-device forward."""
     check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes (tensor/sequence parallelism, ring and Ulysses attention) "
-            "come with the parallel slice of the port"
-        )
     dt = model_dtype(cfg)
     nh = cfg.n_heads
     scale = cfg.head_dim ** -0.5
-    if cfg.attn_impl == "flash":
+    use_sp = mesh is not None and mesh.sp > 1
+    if use_sp and cfg.sliding_window > 0:
+        raise ValueError(
+            "sliding_window is not composed with sequence parallelism "
+            "(windowing across ring/ulysses shards is unimplemented); "
+            "use a mesh without an sp axis"
+        )
+    if use_sp:
+        use_flash = cfg.attn_impl == "flash"
+        if mesh.device.type != params.device.type:
+            raise ValueError(f"mesh is on {mesh.device}, params on {params.device}")
+        if cfg.sp_impl == "ulysses":
+            # Ulysses takes UNexpanded kv: when the kv head count divides
+            # sp they regroup at 1/rep the bytes and expand after.
+            def attn_fn(q, k, v):
+                return ulysses_attention(q, k, v, mesh, scale=scale,
+                                         use_flash=use_flash)
+        elif cfg.sp_impl == "ring":
+            def attn_fn(q, k, v):
+                return ring_attention(q, *_expand_gqa(k, v, nh), mesh,
+                                      scale=scale, use_flash=use_flash)
+        else:
+            raise ValueError(
+                f"sp_impl must be 'ring' or 'ulysses', got {cfg.sp_impl!r}"
+            )
+    elif cfg.attn_impl == "flash":
         def attn_fn(q, k, v):
             return flash_attention(
                 q, *_expand_gqa(k, v, nh), scale=scale,

@@ -20,8 +20,15 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-# Every kernel source of the port, by stem under csrc/.
-KERNEL_SOURCES = ("flash_attention",)
+# Every kernel source of the port, by stem under csrc/, with the extern "C"
+# entry points its library must export.
+KERNEL_SOURCES = {
+    "flash_attention": (
+        "flash_attention_fwd",          # K1, full causal attention
+        "flash_attention_partial_fwd",  # K2, one ring step
+        "flash_attention_error_string",
+    ),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,10 +89,14 @@ def build(names=KERNEL_SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed. Raises
+    if it lacks one of its KERNEL_SOURCES entry points."""
     lib = _loaded.get(name)
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
+        missing = [e for e in KERNEL_SOURCES.get(name, ()) if not hasattr(lib, e)]
+        if missing:
+            raise RuntimeError(f"csrc/{name}.cu exports no {', '.join(missing)}")
         _loaded[name] = lib
     return lib

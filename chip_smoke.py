@@ -8,23 +8,36 @@ one NVIDIA GPU.
 Phases, one line each; any failure exits non-zero:
   env     torch/CUDA versions, the card's name and power limit, TF32 off.
   build   nvcc of every kernel source under the package's csrc/ (parallel).
-  parity  each kernel against its plain PyTorch version on the card.
+  parity  each kernel against its plain PyTorch version on the card: the
+          flash kernel (K1) and the ring-step kernel (K2: diagonal, past,
+          non-causal, klen tail, q padding, folded carry, all-future chunk
+          whose carry must come back bit for bit).
   path_a  Llama-2-7B forward (bf16, b=2, t=2048, random seeded weights)
           through the flash kernel: 32 launches, finite logits, argmax
           agreement with plain attention; a torch.profiler table of device
           time by kernel; then full width, 4 layers, f32: flash vs plain
           within 1e-3 relative.
   path_b  greedy_generate on the same weights, 4 prompts x 128 tokens,
-          32 new tokens; the first new token equals forward's argmax; a
-          profiler table of four decode steps.
-  timing  each kernel at path A's shapes beside its bound, its plain
-          version and one PyTorch library call (a yardstick only).
+          32 new; the first new token equals forward's argmax; a profiler
+          table of four decode steps.
+  path_c  Llama-3-8B sequence-parallel forward (bf16, b=1, t=8192, mesh
+          sp=4 on the one card, full depth, random seeded weights): ring +
+          flash (exactly 320 ring-step launches, no K1), ring plain, and
+          Ulysses + flash (exactly 128 K1 launches), each with argmax
+          agreement against the no-mesh flash forward; a profiler table of
+          the ring + flash forward; then full width, 4 layers, f32, t=4096:
+          ring-flash, ring-plain and Ulysses-flash within 1e-3 relative of
+          the no-mesh forward.
+  timing  each kernel at its path's shapes beside its bound, its plain
+          version and one PyTorch library call (a yardstick only). K2's
+          JSON numbers are per launch over path_c's mix: per layer, 4
+          diagonal and 6 fully visible chunk pairs.
 
 The last lines are a JSON object of per-kernel numbers, the card's name and
 power limit as nvidia-smi prints them, and
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Without a CUDA device, or without the package beside it, it exits non-zero
-and prints no result.
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+(count: the cards this run used). Without a CUDA device, or without the
+package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -37,10 +50,14 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("env", "build", "parity", "path_a", "path_b", "timing")
+ALL_PHASES = ("env", "build", "parity", "path_a", "path_b", "path_c", "timing")
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 SEED = 0
+CARDS_USED = 1            # every phase runs on cuda:0
+SP = 4                    # path_c's ring length: chunks of 2048 at t=8192
+DIAGONAL_PER_LAYER = SP                      # path_c's K2 mix per layer
+OFF_DIAGONAL_PER_LAYER = SP * (SP - 1) // 2
 
 
 class SmokeFailure(RuntimeError):
@@ -60,20 +77,24 @@ def card_line() -> str:
     return out[0] if out else "unknown"
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one fn() call, from CUDA events around `iters`
-    back-to-back calls after `warmup` calls."""
+def time_ms(torch, fn, iters: int, warmup: int = 2, reps: int = 1) -> float:
+    """Device time of one fn() call: the mean from CUDA events around `iters`
+    back-to-back calls after `warmup` calls, the median of `reps` such
+    windows (a short window can catch the card changing clocks)."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return sorted(means)[len(means) // 2]
 
 
 def wall_ms(torch, fn) -> float:
@@ -113,6 +134,238 @@ def causal_pairs(t: int, window: int = 0, sinks: int = 0) -> int:
     return total
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def partial_work(b, tq, tk, h, d, elem, causal_diagonal: bool):
+    """(operations, bytes) of one ring step: QK^T and PV over the visible
+    pairs; q, k, v read once, the f32 carry (acc, m, l) read and written."""
+    pairs = tq * (tq + 1) // 2 if causal_diagonal else tq * tk
+    nbytes = (b * (tq + 2 * tk) * h * d * elem
+              + 2 * 4 * b * h * tq * (d + 2))
+    return 4 * b * h * d * pairs, nbytes
+
+
+def parity_partial(torch, dev, record) -> None:
+    """K2 against its plain version on the card, at path_c's chunk shape."""
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention_partial,
+        flash_attention_partial_reference,
+        new_carry,
+    )
+
+    c = 2048
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, h, d, dtype, tq, tk, q_off, k_off, causal, fold first, tol
+        ("k2_diagonal_bf16", 32, 128, bf16, c, c, c, c, True, False, 2e-2),
+        ("k2_past_chunk_bf16", 32, 128, bf16, c, c, 2 * c, 0, True, False, 2e-2),
+        ("k2_non_causal_bf16", 32, 128, bf16, c, c, 0, c, False, False, 2e-2),
+        ("k2_klen_tail_tk1000_bf16", 32, 128, bf16, c, 1000, 0, 0, True, False, 2e-2),
+        ("k2_q_padding_tq77_bf16", 32, 128, bf16, 77, c, 1000, 0, True, False, 2e-2),
+        ("k2_folded_carry_bf16", 32, 128, bf16, c, c, c, c, True, True, 2e-2),
+        ("k2_all_future_chunk_bf16", 32, 128, bf16, c, c, 0, c, True, True, 0.0),
+        ("k2_klen_tail_tk1000_d64_f32", 8, 64, f32, c, 1000, 0, 0, True, False, 1e-4),
+        ("k2_q_padding_tq77_d64_f32", 8, 64, f32, 77, c, 1000, 0, True, False, 1e-4),
+        ("k2_folded_carry_f32", 8, 128, f32, c, c, c, c, True, True, 1e-4),
+    ]
+    for i, (name, h, d, dtype, tq, tk, q_off, k_off, causal, fold_first,
+            tol) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+
+        def draw(t):
+            return torch.randn((1, t, h, d), generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+
+        q, k, v = draw(tq), draw(tk), draw(tk)
+        carry = new_carry(1, h, tq, d, dev)
+        if fold_first:  # an earlier chunk at global position 0
+            carry = flash_attention_partial_reference(
+                q, draw(c), draw(c), *carry, q_offset=q_off, k_offset=0)
+        kw = dict(q_offset=q_off, k_offset=k_off, causal=causal)
+        got = [x.clone() for x in carry]
+        before = flash_attention_partial.launches
+        out = flash_attention_partial(q, k, v, *got, **kw)
+        torch.cuda.synchronize()
+        check(flash_attention_partial.launches == before + 1,
+              f"{name}: kernel was not launched")
+        check(all(o is g for o, g in zip(out, got)),
+              f"{name}: the carry was not updated in place")
+        if tol == 0.0:
+            same = all(torch.equal(g, x) for g, x in zip(got, carry))
+            print(f"[parity] {name}: carry unchanged bit for bit: {same}",
+                  flush=True)
+            check(same, f"{name}: an all-future chunk changed the carry")
+            continue
+        want = flash_attention_partial_reference(q, k, v, *carry, **kw)
+        out_got = got[0] / got[2].clamp(min=1e-30)[..., None]
+        out_want = want[0] / want[2].clamp(min=1e-30)[..., None]
+        err = (out_got - out_want).abs().max().item()
+        err_m = (got[1] - want[1]).abs().max().item()
+        print(f"[parity] {name}: max_abs_err acc/l {err:.3e}, m {err_m:.3e} "
+              f"(tolerance {tol:g})", flush=True)
+        check(err <= tol and err_m <= tol,
+              f"{name}: max_abs_err {err} / m {err_m} > {tol}")
+        if i == 0:
+            record["max_abs_err"] = err
+        del q, k, v, carry, got, want, out_got, out_want
+
+
+def run_path_c(torch, dev, record) -> None:
+    """Llama-3-8B sequence-parallel forward on one card, then the strict f32
+    check at full width and 4 layers."""
+    from bee_code_interpreter_fs_tpu_torch.models import LlamaConfig, forward, init_params
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_partial,
+    )
+    from bee_code_interpreter_fs_tpu_torch.parallel import MeshSpec, make_mesh
+
+    def reset():
+        flash_attention.launches = 0
+        flash_attention_partial.launches = 0
+
+    mesh = make_mesh(MeshSpec((1, SP, 1, 1)), dev)
+    base = LlamaConfig.llama3_8b()
+    cfgs = {name: dataclasses.replace(base, sp_impl=sp_impl, attn_impl=attn)
+            for name, sp_impl, attn in (("flash", "ring", "flash"),
+                                        ("ring_flash", "ring", "flash"),
+                                        ("ring_plain", "ring", "plain"),
+                                        ("ulysses_flash", "ulysses", "flash"))}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    t0 = time.perf_counter()
+    params = init_params(base, gen, dev)
+    torch.cuda.synchronize()
+    print(f"[init] llama3_8b bf16 weights on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    b, t = 1, 8192
+    tokens = torch.randint(0, base.vocab_size, (b, t), generator=gen, device=dev)
+    # Each sp run: (mesh?, K2 launches, K1 launches) it must show.
+    n_l = base.n_layers
+    runs = (("ring_flash", n_l * SP * (SP + 1) // 2, 0),
+            ("ring_plain", 0, 0),
+            ("ulysses_flash", 0, n_l * SP))
+    with torch.inference_mode():
+        ref = forward(params, tokens, cfgs["flash"])  # no mesh: K1 per layer
+        ref_arg = ref.argmax(-1)
+        for name, want_k2, want_k1 in runs:
+            cfg = cfgs[name]
+            reset()
+            logits = forward(params, tokens, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            k2, k1 = flash_attention_partial.launches, flash_attention.launches
+            if name == "ring_flash":
+                record["launches"] = k2
+            check(k2 == want_k2 and k1 == want_k1,
+                  f"path_c {name}: {k2} ring-step and {k1} flash launches, "
+                  f"expected {want_k2} and {want_k1}")
+            check(logits.shape == (b, t, base.vocab_size)
+                  and logits.dtype == torch.float32, f"path_c {name} logits shape/dtype")
+            check(bool(torch.isfinite(logits).all()), f"path_c {name} logits not finite")
+            agree = (logits.argmax(-1) == ref_arg).float().mean().item()
+            diff = (logits - ref).abs().max().item()
+            del logits
+            reps = 1 if name == "ring_plain" else 3
+            fwd_ms = min(wall_ms(torch, lambda: forward(params, tokens, cfg, mesh=mesh))
+                         for _ in range(reps))
+            print(f"[path_c] llama3_8b bf16 b={b} t={t} sp={SP} {name}: {k2} "
+                  f"ring-step and {k1} flash launches, logits finite, argmax "
+                  f"agreement with the no-mesh flash forward {agree:.4f} "
+                  f"(>= 0.9), max |diff| {diff:.3e} | forward {fwd_ms:.2f} ms, "
+                  f"{b * t / fwd_ms * 1e3:.0f} tokens/s", flush=True)
+            check(agree >= 0.9, f"path_c {name} argmax agreement {agree} < 0.9")
+        del ref, ref_arg
+        ref_ms = min(wall_ms(torch, lambda: forward(params, tokens, cfgs["flash"]))
+                     for _ in range(3))
+        print(f"[path_c] llama3_8b bf16 b={b} t={t} no-mesh flash forward "
+              f"{ref_ms:.2f} ms, {b * t / ref_ms * 1e3:.0f} tokens/s", flush=True)
+        print_profile(torch, "path_c ring+flash forward",
+                      lambda: forward(params, tokens, cfgs["ring_flash"], mesh=mesh))
+    del params
+    torch.cuda.empty_cache()
+
+    f32 = {name: dataclasses.replace(cfg, n_layers=4, dtype="float32")
+           for name, cfg in cfgs.items()}
+    params32 = init_params(f32["flash"], torch.Generator(device=dev).manual_seed(SEED + 3), dev)
+    tokens32 = torch.randint(0, base.vocab_size, (1, 4096), generator=gen, device=dev)
+    plain_nomesh = dataclasses.replace(f32["flash"], attn_impl="plain")
+    with torch.inference_mode():
+        for name, ref_cfg in (("ring_flash", f32["flash"]),
+                              ("ulysses_flash", f32["flash"]),
+                              ("ring_plain", plain_nomesh)):
+            want = forward(params32, tokens32, ref_cfg)
+            got = forward(params32, tokens32, f32[name], mesh=mesh)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            del want, got
+            print(f"[path_c] full width, 4 layers, f32, t=4096 sp={SP}: {name} "
+                  f"vs no-mesh {ref_cfg.attn_impl} relative error {rel:.3e} "
+                  f"(<= 1e-3)", flush=True)
+            check(rel <= 1e-3, f"f32 {name} relative error {rel} > 1e-3")
+    del params32
+    torch.cuda.empty_cache()
+
+
+def time_partial(torch, dev, record) -> None:
+    """K2 at path_c's two chunk-pair shapes, beside its bound, its plain
+    version and SDPA on the same pair (a yardstick: no carry)."""
+    import torch.nn.functional as F
+
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention_partial,
+        flash_attention_partial_reference,
+        new_carry,
+    )
+
+    b, c, h, d = 1, 2048, 32, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((b, c, h, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mix = {"diagonal": DIAGONAL_PER_LAYER, "off_diagonal": OFF_DIAGONAL_PER_LAYER}
+    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops", "bytes"), 0.0)
+    for label, q_off, k_off in (("diagonal", c, c), ("off_diagonal", 2 * c, 0)):
+        diag = label == "diagonal"
+        carry = new_carry(b, h, c, d, dev)
+        kw = dict(q_offset=q_off, k_offset=k_off)
+        kernel_ms = time_ms(torch, lambda: flash_attention_partial(q, k, v, *carry, **kw),
+                            iters=50, reps=5)
+        plain_ms = time_ms(
+            torch, lambda: flash_attention_partial_reference(q, k, v, *carry, **kw),
+            iters=5, warmup=1)
+        library_ms = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=diag),
+            iters=50, reps=5)
+        flops, nbytes = partial_work(b, c, c, h, d, 2, diag)
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[timing] flash_attention_partial {label} b={b} chunk={c} h={h} "
+              f"d={d} bf16: kernel {kernel_ms:.4f} ms "
+              f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms", flush=True)
+        w = mix[label]
+        for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms),
+                         ("library_ms", library_ms), ("bound_ms", bound_ms),
+                         ("ops", flops / PEAK_BF16_FLOPS), ("bytes", nbytes / PEAK_BYTES)):
+            totals[key] += w * val
+        del carry
+    n = sum(mix.values())
+    record.update(
+        ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n,
+        library_ms=totals["library_ms"] / n, bound_ms=totals["bound_ms"] / n,
+        bound_by="operations" if totals["ops"] >= totals["bytes"] else "bytes",
+    )
+    print(f"[timing] flash_attention_partial per launch over path_c's mix "
+          f"({DIAGONAL_PER_LAYER} diagonal + {OFF_DIAGONAL_PER_LAYER} "
+          f"off-diagonal per layer): kernel {record['ms']:.4f} ms, bound "
+          f"{record['bound_ms']:.4f} ms, plain {record['plain_ms']:.3f} ms, "
+          f"sdpa {record['library_ms']:.4f} ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -143,19 +396,23 @@ def main(argv=None) -> int:
     from bee_code_interpreter_fs_tpu_torch.ops import _build
     from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
         flash_attention,
+        flash_attention_partial,
         flash_attention_reference,
     )
 
     dev = torch.device("cuda")
     card = card_line()
-    record = {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "bee_code_interpreter_fs_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "bee_code_interpreter_fs_tpu/ops/flash_attention.py:103",
-        "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
-        "bound_ms": None, "bound_by": None, "library_ms": None,
-    }
+    def kernel_record(name, replaces):
+        return {
+            "name": name, "route": "cuda",
+            "source": "bee_code_interpreter_fs_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"bee_code_interpreter_fs_tpu/ops/flash_attention.py:{replaces}",
+            "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+        }
+
+    record = kernel_record("flash_attention", 103)                 # K1
+    record_k2 = kernel_record("flash_attention_partial", 193)      # K2
 
     def qkv(b, t, h, d, dtype, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -208,6 +465,7 @@ def main(argv=None) -> int:
             if i == 0:
                 record["max_abs_err"] = err
             del q, k, v, got, want
+        parity_partial(torch, dev, record_k2)
 
     params = None
     cfg = LlamaConfig.llama2_7b(attn_impl="flash")
@@ -227,13 +485,15 @@ def main(argv=None) -> int:
         tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev)
         with torch.inference_mode():
             flash_attention.launches = 0
+            flash_attention_partial.launches = 0
             logits = forward(params, tokens, cfg)
             torch.cuda.synchronize()
             launches = flash_attention.launches
             record["launches"] = launches
-            check(launches == cfg.n_layers,
-                  f"path A launched the kernel {launches} times, "
-                  f"expected {cfg.n_layers}")
+            check(launches == cfg.n_layers and flash_attention_partial.launches == 0,
+                  f"path A launched the kernel {launches} times (and the "
+                  f"ring-step kernel {flash_attention_partial.launches}), "
+                  f"expected {cfg.n_layers} (and 0)")
             check(logits.shape == (b, t, cfg.vocab_size)
                   and logits.dtype == torch.float32, "path A logits shape/dtype")
             check(bool(torch.isfinite(logits).all()), "path A logits not finite")
@@ -300,39 +560,43 @@ def main(argv=None) -> int:
                   f"prefill {prefill_ms:.2f} ms, decode {step_ms:.2f} ms/step, "
                   f"{b / step_ms * 1e3:.1f} tokens/s", flush=True)
 
+    params = None  # path_c needs the room
+    torch.cuda.empty_cache()
+    if "path_c" in phases:
+        run_path_c(torch, dev, record_k2)
+
     if "timing" in phases:
         b, t, h, d = 2, 2048, 32, 128
         q, k, v = qkv(b, t, h, d, torch.bfloat16, SEED)
-        kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v), iters=50)
+        kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v), iters=50, reps=5)
         plain_ms = time_ms(torch, lambda: flash_attention_reference(q, k, v),
                            iters=5, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(
             torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            iters=50)
+            iters=50, reps=5)
         flops = 4 * b * h * d * causal_pairs(t)
         nbytes = 4 * q.numel() * q.element_size()
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        record.update(
-            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-        )
+        bound_ms, bound_by = bound(flops, nbytes)
+        record.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
         print(f"[timing] flash_attention b={b} t={t} h={h} d={d} bf16 causal: "
               f"kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
               f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}: "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
               f"plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms", flush=True)
+        del q, k, v, qt, kt, vt
+        time_partial(torch, dev, record_k2)
 
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if set(phases) != set(ALL_PHASES):
         return 0
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, record_k2]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": CARDS_USED}}))
     return 0
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels (full flash attention and the ring step) on the
+card, against their plain PyTorch versions.
 
 Every test here carries the `cuda` marker and skips without a CUDA device.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -70,3 +71,72 @@ def test_forward_launches_the_kernel_once_per_layer(cuda):
         assert fa.flash_attention.launches == cfg.n_layers
         plain = forward(params, tokens, dataclasses.replace(cfg, attn_impl="plain"))
     assert (flash - plain).abs().max().item() <= 1e-4
+
+
+# name: (tq, tk, q_offset, k_offset, causal, fold an earlier chunk first)
+PARTIAL_CASES = {
+    "diagonal": (256, 256, 256, 256, True, False),
+    "past_chunk": (256, 256, 512, 0, True, False),
+    "non_causal": (256, 256, 0, 256, False, False),
+    "klen_tail_tk1000": (256, 1000, 900, 0, True, False),
+    "q_padding_tq77": (77, 256, 200, 0, True, False),
+    "folded_carry": (256, 256, 256, 256, True, True),
+    "all_future_chunk": (256, 256, 0, 256, True, True),
+}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(PARTIAL_CASES))
+def test_partial_kernel_matches_reference(cuda, case, dtype, d):
+    tq, tk, q_off, k_off, causal, fold_first = PARTIAL_CASES[case]
+    b, h = 1, 4
+    rng = np.random.default_rng(tq + tk + d)
+
+    def draw(t):
+        x = rng.standard_normal((b, t, h, d)).astype(np.float32)
+        return torch.from_numpy(x).to(device=cuda, dtype=getattr(torch, dtype))
+
+    q, k, v, k_prev, v_prev = draw(tq), draw(tk), draw(tk), draw(256), draw(256)
+    carry = fa.new_carry(b, h, tq, d, cuda)
+    if fold_first:  # a chunk at global position 0, folded by the plain version
+        carry = fa.flash_attention_partial_reference(
+            q, k_prev, v_prev, *carry, q_offset=q_off, k_offset=0)
+    kw = dict(q_offset=q_off, k_offset=k_off, causal=causal)
+    got = [c.clone() for c in carry]
+    before = fa.flash_attention_partial.launches
+    out = fa.flash_attention_partial(q, k, v, *got, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_partial.launches == before + 1
+    assert all(o is g for o, g in zip(out, got))  # the caller's carry, in place
+    want = fa.flash_attention_partial_reference(q, k, v, *carry, **kw)
+    if case == "all_future_chunk":
+        assert all(torch.equal(g, c) for g, c in zip(got, carry))
+        return
+    # The kernel tiles by its own sizes: f32 differs in summation order;
+    # bf16 may round P one step apart.
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    out_got = got[0] / got[2].clamp(min=1e-30)[..., None]
+    out_want = want[0] / want[2].clamp(min=1e-30)[..., None]
+    assert (out_got - out_want).abs().max().item() <= tol
+    assert (got[1] - want[1]).abs().max().item() <= tol
+
+
+def test_ring_forward_launches_the_partial_kernel_per_live_step(cuda):
+    from bee_code_interpreter_fs_tpu_torch.models import LlamaConfig, forward, init_params
+    from bee_code_interpreter_fs_tpu_torch.parallel import MeshSpec, make_mesh
+
+    sp = 4
+    cfg = LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1, hidden_dim=512,
+                           attn_impl="flash", dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda)
+    mesh = make_mesh(MeshSpec((1, sp, 1, 1)), cuda)
+    with torch.inference_mode():
+        want = forward(params, tokens, cfg)
+        fa.flash_attention.launches = fa.flash_attention_partial.launches = 0
+        got = forward(params, tokens, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_partial.launches == cfg.n_layers * sp * (sp + 1) // 2
+        assert fa.flash_attention.launches == 0
+    assert (got - want).abs().max().item() <= 1e-4

@@ -122,9 +122,18 @@ def test_module_imports_without_nvcc_or_triton():
     code = (
         "import sys, shutil\n"
         "import bee_code_interpreter_fs_tpu_torch.ops.flash_attention as m\n"
+        "import bee_code_interpreter_fs_tpu_torch.parallel.mesh\n"
+        "import bee_code_interpreter_fs_tpu_torch.parallel.collectives\n"
+        "import bee_code_interpreter_fs_tpu_torch.parallel.ring_attention\n"
+        "import bee_code_interpreter_fs_tpu_torch.parallel.ulysses\n"
+        "import bee_code_interpreter_fs_tpu_torch.models.llama\n"
         "assert shutil.which('nvcc') is None\n"
         "assert 'triton' not in sys.modules\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'bee_code_interpreter_fs_tpu')]\n"
+        "assert not bad, bad\n"
         "assert m.flash_attention.launches == 0\n"
+        "assert m.flash_attention_partial.launches == 0\n"
     )
     env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
     env["PATH"] = os.path.dirname(sys.executable)

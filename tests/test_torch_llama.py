@@ -30,6 +30,10 @@ from bee_code_interpreter_fs_tpu_torch.models.convert import (  # noqa: E402
     params_from_jax,
     to_torch,
 )
+from bee_code_interpreter_fs_tpu_torch.parallel.mesh import (  # noqa: E402
+    MeshSpec,
+    make_mesh,
+)
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 VARIANTS = {
@@ -261,7 +265,8 @@ def test_later_slice_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="remat"):
         tl.forward(model, toks, LlamaConfig.tiny(remat=True, dtype="float32"))
     with pytest.raises(NotImplementedError, match="parallel slice"):
-        tl.forward(model, toks, LlamaConfig.tiny(dtype="float32"), mesh=object())
+        tl.forward(model, toks, LlamaConfig.tiny(dtype="float32"),
+                   mesh=make_mesh(MeshSpec((1, 1, 1, 2)), device="cpu"))
     with pytest.raises(NotImplementedError, match="quant"):
         to_torch({"q": np.zeros(2, np.int8), "s": np.ones(1, np.float32)})
 
