@@ -26,44 +26,61 @@
 // on one [1, 2048, 32, 128] chunk pair also moves the f32 carry in and out,
 // 118.5 MB: ~35 us by bytes against 34.4 GFLOP (~35 us) on the causal
 // diagonal, and 68.7 GFLOP (~70 us, compute-bound) on a fully visible chunk.
-// What matters is keeping the tensor cores fed and doing no dead work.
+// So the tensor cores have to be kept fed, and only `wgmma` reaches their
+// full rate on Hopper; the Ampere `mma.sync` path this design replaced ran
+// at ~160 TFLOP/s.
 //
-// What the design does about it:
-// - One thread block per (q-tile, b*h). The block loops over only the live
-//   key range of its q-tile: from the window start (or 0 while sink tiles
-//   are live) up to the causal frontier, in the chunk's coordinates. Dead
+// What the design does about it (bf16, the fast path):
+// - One block per (q-tile of 128 rows, b*h), 384 threads in three
+//   warpgroups. Warpgroups 0 and 1 consume, 64 query rows each, and ask
+//   for 240 registers with setmaxnreg; warpgroup 2 produces, gives back
+//   down to 24, and one of its threads issues every copy. The roles split
+//   once, on a warp-uniform index, and never reconverge.
+// - Copies are TMA loads through 4-D tensor maps over the [b, t, h, d]
+//   tensors (dims d, h, t, b; the strides the caller passes), in 64-column
+//   boxes with the 128-byte swizzle that wgmma reads. The map's t extent is
+//   the tensor's own length, so TMA zero-fills rows past the end: that is
+//   the padding tail, and a ring chunk may be a view into a longer tensor.
+//   The Q tile arrives once; K and V tiles of 128 keys go through rings of
+//   2 stages (d=128) or 3 (d=64), K and V each with a "full" mbarrier (the
+//   TMA byte count) and an "empty" one (one arrival per consumer warp), so
+//   a K tile is refilled as soon as its scores are done and the producer
+//   runs ahead of the math by the depth of the ring.
+// - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   (K-major). O += P V is wgmma m64n{d}k16 with P in registers: the f32
+//   S accumulator, packed pairwise to bf16, is the A fragment as it stands,
+//   and V is read MN-major (the transpose flag). Each consumer issues tile
+//   j's S together with tile j-1's P V and runs tile j's softmax while that
+//   P V is in flight, so its own softmax hides under its products as well
+//   as under the other consumer's. That needs S, P and O live at once, the
+//   reason for the consumers' 240 registers.
+// - The block walks only the live key range of its q-tile: from the window
+//   start (or 0 while sink tiles are live) up to the causal frontier, in
+//   the chunk's coordinates, producer and consumers the same sequence. Dead
 //   tiles cost neither loads nor math; this replaces the TPU's sequential
 //   key grid axis and its `kv_index` clamp. A ring step's q-tile with no
-//   live key tile returns at once and leaves its carry untouched, bit for
-//   bit. Q tiles are visited last-first, so the longest rows of the causal
-//   triangle start first and the tail is short.
-// - bf16: each of 4 warps owns 16 query rows; Q lives in registers as
-//   mma.sync m16n8k16 A fragments for the whole loop. K and V tiles
-//   (64 keys) are copied to shared memory with cp.async, double-buffered so
-//   the next live tile loads while this one computes; rows are padded so
-//   the ldmatrix fragment loads (transposed for V) hit no bank conflicts.
-//   S = Q K^T and O += P V run on the tensor cores with f32 accumulators;
-//   the score accumulator is reused in registers as the A operand of P V
-//   (no shared-memory round trip for P). Only tiles on the causal diagonal,
-//   the window edge or the padding tail build a mask, and the softmax runs
-//   in the log2 domain (one exp2 per score); the carry's m crosses between
-//   the natural and the log2 domain at the loop's two ends, with -1e30 kept
-//   as -1e30 both ways.
+//   live key tile returns before any barrier, copy or store, leaving its
+//   carry bit for bit. Q tiles are visited last-first, so the longest rows
+//   of the causal triangle start first and the tail is short.
+// - Numerics follow `_tile_update` (flash_attention.py:67-100): scores and
+//   the (acc, m, l) carry are f32, masked scores are -1e30 (not -inf), P is
+//   rounded to bf16 before the P V product, l sums the unrounded P, out =
+//   acc / l. The softmax runs in the log2 domain (one exp2 per score); the
+//   carry's m crosses between the natural and the log2 domain at the loop's
+//   two ends, with -1e30 kept as -1e30 both ways. Only tiles on a warp's
+//   causal diagonal, the window edge or the klen tail build a mask. Row max
+//   and row sum reduce over the quad of threads that holds a row.
 // - f32: plain FMA loops (16 query rows x 32 keys per tile, 8 threads per
 //   row); f32 is the exactness check, not the fast path.
-// - Numerics follow `_tile_update` (flash_attention.py:67-100): scores and
-//   the (acc, m, l) carry are f32, masked scores are -1e30 (not -inf),
-//   P is rounded to V's dtype before the P V product, l sums the unrounded
-//   P, out = acc / l in q's dtype.
-// - q, k, v and out are read in their [b, t, h, d] layout through strides:
-//   no transposes around the call. The carry is contiguous [b, h, tq, d]
-//   and [b, h, tq].
+// - The carry is contiguous [b, h, tq, d] and [b, h, tq], f32.
 //
-// A simple kernel that is right; wgmma, TMA and warp specialization are
-// later work. Built by bee_code_interpreter_fs_tpu_torch/ops/_build.py:
+// Built by bee_code_interpreter_fs_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
+// The driver's cuTensorMapEncodeTiled is looked up at run time through
+// cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +89,8 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -119,93 +138,18 @@ __device__ __forceinline__ bool tile_live(const Params& p, const KeyRange& r,
   return k0 + bk - 1 >= r.first || (p.window > 0 && p.k_off + k0 < p.sinks);
 }
 
+__device__ __forceinline__ int next_live(const Params& p, const KeyRange& r,
+                                         int j, int bk) {
+  while (j < r.tile_end && !tile_live(p, r, j * bk, bk)) ++j;
+  return j;
+}
+
 __device__ __forceinline__ bool visible(const Params& p, int row, int key) {
   const int qp = p.q_off + row;
   const int kp = p.k_off + key;
   bool vis = key < p.tk && (!p.causal || kp <= qp);
   if (p.window > 0) vis = vis && (kp > qp - p.window || kp < p.sinks);
   return vis;
-}
-
-// ---------------------------------------------------------------- bf16
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// 16 bytes global -> shared without registers; zero-filled when !valid.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_u32(smem)), "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two adjacent bf16 of row `row` starting at column `col`, or zeros past t.
-__device__ __forceinline__ uint32_t load_pair(const uint16_t* base,
-                                              long long row_stride, int row,
-                                              int col, int t) {
-  if (row >= t) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * row_stride + col);
-}
-
-constexpr int kBq = 64;      // query rows per block: 4 warps x 16
-constexpr int kBk = 64;      // keys per shared-memory tile
-constexpr int kPad = 8;      // bf16 elements of row padding in shared memory
-constexpr int kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// The carry's running max between the natural domain (the reference's m)
-// and the kernel's log2 domain; the -1e30 "nothing seen yet" value is the
-// same in both, so a fresh row behaves as the reference's does.
-__device__ __forceinline__ float to_log2(float m) {
-  return m <= kNegInf ? kNegInf : m * kLog2e;
-}
-
-__device__ __forceinline__ float from_log2(float m) {
-  return m <= kNegInf ? kNegInf : m * kLn2;
 }
 
 // The fields one kernel kind fixes, as compile-time constants, so that the
@@ -226,92 +170,408 @@ __device__ __forceinline__ Params specialize(const Params& in) {
   return p;
 }
 
-template <int D>
-constexpr int bf16_smem_bytes() {
-  return 4 * kBk * (D + kPad) * 2;  // K and V, two stages each
+// The carry's running max between the natural domain (the reference's m)
+// and the kernel's log2 domain; the -1e30 "nothing seen yet" value is the
+// same in both, so a fresh row behaves as the reference's does.
+__device__ __forceinline__ float to_log2(float m) {
+  return m <= kNegInf ? kNegInf : m * kLog2e;
 }
 
-// Start the copies of key tile [k0, k0 + kBk) of K and V into one stage.
+__device__ __forceinline__ float from_log2(float m) {
+  return m <= kNegInf ? kNegInf : m * kLn2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- bf16
+
+constexpr int kBq = 128;           // query rows per block: 2 consumers x 64
+constexpr int kBk = 128;           // keys per K/V tile
+constexpr int kBoxCols = 64;       // bf16 columns in one 128-byte swizzled row
+constexpr int kRowBytes = 128;     // shared-memory bytes per tile row
+constexpr int kConsumers = 2;      // consumer warpgroups
+constexpr int kThreadsBf16 = 128 * (kConsumers + 1);
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;  // 2 * 128 * 240 + 128 * 24 <= 65536
+
+// Shared memory of one block, in bytes from a 1024-aligned base: the Q tile
+// and the K and V stages as 64-column boxes of 128-byte swizzled rows, then
+// the mbarriers.
 template <int D>
-__device__ __forceinline__ void load_kv_tile(uint16_t* ks, uint16_t* vs,
-                                             const uint16_t* kb,
-                                             const uint16_t* vb,
-                                             const Params& p, int k0) {
-  constexpr int kRow = D + kPad;
-  for (int idx = threadIdx.x; idx < kBk * D / 8; idx += kThreads) {
-    const int r = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
-    const int key = k0 + r;
-    const bool in = key < p.tk;
-    const long long row = in ? key : 0;
-    cp_async_16(ks + r * kRow + c, kb + row * p.k_st + c, in);
-    cp_async_16(vs + r * kRow + c, vb + row * p.v_st + c, in);
+struct Bf16Smem {
+  static constexpr int kStages = D == 128 ? 2 : 3;  // 160 or 112 KB in all
+  static constexpr int kBoxes = D / kBoxCols;       // boxes per tile row
+  static constexpr int kQBox = kBq * kRowBytes;     // one box of the Q tile
+  static constexpr int kKBox = kBk * kRowBytes;     // one box of a K/V tile
+  static constexpr int kStage = kBoxes * kKBox;     // one K (or V) stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kBoxes * kQBox;
+  static constexpr int kV = kK + kStages * kStage;
+  // Barriers, 8 bytes each: Q's, then per stage K full, V full, K empty,
+  // V empty.
+  static constexpr int kQBar = kV + kStages * kStage;
+  static constexpr int kFullK = kQBar + 8;
+  static constexpr int kFullV = kFullK + 8 * kStages;
+  static constexpr int kEmptyK = kFullV + 8 * kStages;
+  static constexpr int kEmptyV = kEmptyK + 8 * kStages;
+  static constexpr int kAlloc = kEmptyV + 8 * kStages + 1024;  // + alignment
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. No trap
+// guards the spin: with a trap anywhere in the kernel, ptxas compiles the
+// consumers within the 168-register entry budget whatever setmaxnreg asks,
+// and the 128-key tile's wgmmas then serialize or spill.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
   }
-  cp_async_commit();
 }
 
-__device__ __forceinline__ int next_live(const Params& p, const KeyRange& r,
-                                         int j, int bk) {
-  while (j < r.tile_end && !tile_live(p, r, j * bk, bk)) ++j;
-  return j;
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; the copy's bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product's issue and its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor for a tile of 128-byte rows in
+// the 128-byte swizzle (8-row atoms of 1024 bytes from a 1024-aligned box).
+// K-major operands (Q, K) step 8-row atoms by `sbo` = 1024; an MN-major
+// operand (V) also steps from one 64-column box to the next by `lbo`.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;  // layout: 128-byte swizzle
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (+)= A B^T, m64n128k16: A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// O += A B, m64n128k16: A from registers, B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O += A B, m64n64k16: A from registers, B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The next stage of a ring of N, flipping the phase bit at each wrap.
+template <int N>
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == N) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// The producer: one thread of the producer warpgroup issues every copy of
+// the block, the Q tile once and then each live tile's K and V into the
+// next stage of their rings as the consumers free it.
+template <int D>
+__device__ __forceinline__ void produce(const Params& p, const KeyRange& range,
+                                        int first, uint32_t base, int bi, int hi,
+                                        int q0, const CUtensorMap* q_map,
+                                        const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map) {
+  using S = Bf16Smem<D>;
+  prefetch_tensormap(q_map);
+  prefetch_tensormap(k_map);
+  prefetch_tensormap(v_map);
+  mbar_expect_tx(base + S::kQBar, S::kBoxes * S::kQBox);
+#pragma unroll
+  for (int c = 0; c < S::kBoxes; ++c) {
+    tma_load_4d(base + S::kQ + c * S::kQBox, q_map, base + S::kQBar, c * kBoxCols,
+                hi, q0, bi);
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = first; j < range.tile_end; j = next_live(p, range, j + 1, kBk)) {
+    const uint32_t off = stage * S::kStage;
+    mbar_wait(base + S::kEmptyK + 8 * stage, phase ^ 1);
+    mbar_expect_tx(base + S::kFullK + 8 * stage, S::kStage);
+#pragma unroll
+    for (int c = 0; c < S::kBoxes; ++c) {
+      tma_load_4d(base + S::kK + off + c * S::kKBox, k_map, base + S::kFullK + 8 * stage,
+                  c * kBoxCols, hi, j * kBk, bi);
+    }
+    mbar_wait(base + S::kEmptyV + 8 * stage, phase ^ 1);
+    mbar_expect_tx(base + S::kFullV + 8 * stage, S::kStage);
+#pragma unroll
+    for (int c = 0; c < S::kBoxes; ++c) {
+      tma_load_4d(base + S::kV + off + c * S::kKBox, v_map, base + S::kFullV + 8 * stage,
+                  c * kBoxCols, hi, j * kBk, bi);
+    }
+    advance<S::kStages>(stage, phase);
+  }
+}
+
+// S = Q K^T for this warpgroup's 64 rows against one K tile, over head-dim
+// chunks of 16: chunk kc is 32 bytes into the 128-byte rows of box kc / 4.
+template <int D>
+__device__ __forceinline__ void issue_qk(float* s, uint32_t q_tile, uint32_t k_tile) {
+  using S = Bf16Smem<D>;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const uint32_t col = (kc % 4) * 32;
+    wgmma_ss_n128(s, smem_desc(q_tile + (kc / 4) * S::kQBox + col, 16, 1024),
+                   smem_desc(k_tile + (kc / 4) * S::kKBox + col, 16, 1024), kc > 0);
+  }
+}
+
+// O += P V over key chunks of 16: V's rows are keys, so B is MN-major and
+// steps 16 rows (2048 bytes) per chunk and one box per 64 head-dim columns.
+template <int D>
+__device__ __forceinline__ void issue_pv(float* acc, const uint32_t (*pa)[4],
+                                         uint32_t v_tile) {
+  using S = Bf16Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBk / 16; ++kk) {
+    const uint64_t vd = smem_desc(v_tile + kk * 16 * kRowBytes, S::kKBox, 1024);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(acc, pa[kk], vd);
+    } else {
+      wgmma_rs_n64(acc, pa[kk], vd);
+    }
+  }
+}
+
+// The online softmax of one key tile for one warp's 16 rows: scale and mask
+// the scores in s (the wgmma accumulator layout), fold them into the running
+// max m and sum l, and leave P = exp2(s - m) in s. c0 / c1 come back as the
+// correction of the earlier keys' accumulator rows.
+__device__ __forceinline__ void online_softmax(float* s, const Params& p, int k0,
+                                               int wq0, int row0, int t4,
+                                               float scale_log2, float& m0,
+                                               float& m1, float& l0, float& l1,
+                                               float& c0, float& c1) {
+  const int row1 = row0 + 8;
+  // Tiles wholly visible to every row of this warp need no mask.
+  const bool interior =
+      k0 + kBk <= p.tk &&
+      (!p.causal || p.k_off + k0 + kBk - 1 <= p.q_off + wq0) &&
+      (p.window == 0 || p.k_off + k0 > p.q_off + wq0 + 15 - p.window);
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int n = 0; n < kBk / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? row0 : row1;
+      const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+      s[4 * n + e] = (interior || visible(p, row, key)) ? s[4 * n + e] * scale_log2
+                                                       : kNegInf;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFullMask, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFullMask, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 2));
+
+  c0 = exp2f(m0 - mx0);
+  c1 = exp2f(m1 - mx1);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < kBk / 8; ++n) {
+    s[4 * n] = exp2f(s[4 * n] - mx0);
+    s[4 * n + 1] = exp2f(s[4 * n + 1] - mx0);
+    s[4 * n + 2] = exp2f(s[4 * n + 2] - mx1);
+    s[4 * n + 3] = exp2f(s[4 * n + 3] - mx1);
+    sum0 += s[4 * n] + s[4 * n + 1];
+    sum1 += s[4 * n + 2] + s[4 * n + 3];
+  }
+  l0 = l0 * c0 + sum0;
+  l1 = l1 * c1 + sum1;
+  m0 = mx0;
+  m1 = mx1;
+}
+
+// Rescale the accumulator rows by the softmax's correction, and round P to
+// bf16 as P V's register A fragments: the S accumulators of column tiles 2kk
+// and 2kk+1 are exactly the fragment of keys [16kk, 16kk+16).
+template <int D>
+__device__ __forceinline__ void rescale_and_pack(float* acc, uint32_t (*pa)[4],
+                                                 const float* s, float c0, float c1) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    acc[4 * dn] *= c0;
+    acc[4 * dn + 1] *= c0;
+    acc[4 * dn + 2] *= c1;
+    acc[4 * dn + 3] *= c1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBk / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// A consumer: one warpgroup's 64 query rows of the block. Each warp owns 16
+// rows; in the wgmma accumulator, element 4n + e of a thread is row
+// g (+8 for e >= 2), column 8n + 2 * t4 + (e & 1), as in mma.sync's m16n8.
+// The products of two tiles overlap the softmax: tile j's S = Q K^T is
+// issued together with tile j-1's P V, and the softmax of tile j runs while
+// that P V is still in flight.
 template <int D, bool kPartial>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(const Params params) {
-  const Params p = specialize<kPartial>(params);
-  constexpr int kRow = D + kPad;
-  constexpr int kTile = kBk * kRow;
-  extern __shared__ __align__(16) uint16_t smem[];  // K0 K1 V0 V1
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
-  const int bi = bh / p.h;
-  const int hi = bh % p.h;
-  const int warp = threadIdx.x / 32;
+__device__ __forceinline__ void consume(const Params& p, const KeyRange& range,
+                                        int first, uint32_t base, int bh, int bi,
+                                        int hi, int q0) {
+  using S = Bf16Smem<D>;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;   // fragment row group
   const int t4 = lane & 3;   // thread within the group
-  const int q0 = qt * kBq;
-  const int wq0 = q0 + warp * 16;  // this warp's first and last rows
-  const int wq1 = wq0 + 15;
+  const int wq0 = q0 + wg * 64 + warp * 16;  // this warp's first row
   const int row0 = wq0 + g;
   const int row1 = row0 + 8;
   // Scores are kept in the log2 domain: exp2(s*scale*log2e - m) is the
   // reference's exp(s*scale - m') up to rounding.
   const float scale_log2 = p.scale * kLog2e;
 
-  const KeyRange range = key_range(p, q0, kBq, kBk);
-  int j = next_live(p, range, range.tile_begin, kBk);
-  if (kPartial && j >= range.tile_end) return;  // carry stays as it was
-
-  const uint16_t* qb = static_cast<const uint16_t*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const uint16_t* kb = static_cast<const uint16_t*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const uint16_t* vb = static_cast<const uint16_t*>(p.v) + bi * p.v_sb + hi * p.v_sh;
-
-  int stage = 0;
-  if (j < range.tile_end) load_kv_tile<D>(smem, smem + 2 * kTile, kb, vb, p, j * kBk);
-
-  // Q as m16n8k16 A fragments: chunk kc covers head dims [16kc, 16kc+16).
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t4;
-    qf[kc][0] = load_pair(qb, p.q_st, row0, c, p.tq);
-    qf[kc][1] = load_pair(qb, p.q_st, row1, c, p.tq);
-    qf[kc][2] = load_pair(qb, p.q_st, row0, c + 8, p.tq);
-    qf[kc][3] = load_pair(qb, p.q_st, row1, c + 8, p.tq);
-  }
-
-  float acc[D / 8][4];
+  float acc[D / 2];  // head-dim columns 8dn.. at acc[4 * dn + e]
   float m0 = kNegInf, m1 = kNegInf;  // running max of rows row0 / row1
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
   // Carry rows of this block's (b, h): row r of acc at carry[(cb + r) * D].
   const long long cb = static_cast<long long>(bh) * p.tq;
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   if constexpr (kPartial) {
     // Thread t4 == 0 carries the row's l; the quad's shares sum to it.
 #pragma unroll
@@ -322,8 +582,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         const float2 a = *reinterpret_cast<const float2*>(arow + dn * 8 + 2 * t4);
-        acc[dn][2 * half] = a.x;
-        acc[dn][2 * half + 1] = a.y;
+        acc[4 * dn + 2 * half] = a.x;
+        acc[4 * dn + 2 * half + 1] = a.y;
       }
       const float mv = to_log2(p.m[cb + row]);
       const float lv = t4 == 0 ? p.l[cb + row] : 0.f;
@@ -331,106 +591,62 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const int ld_row = lane & 7;  // ldmatrix: row within matrix lane >> 3
-  const int ld_mat = lane >> 3;
-  while (j < range.tile_end) {
-    const int k0 = j * kBk;
-    const int j_next = next_live(p, range, j + 1, kBk);
-    if (j_next < range.tile_end) {  // prefetch the next live tile
-      load_kv_tile<D>(smem + (stage ^ 1) * kTile, smem + (2 + (stage ^ 1)) * kTile,
-                      kb, vb, p, j_next * kBk);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint16_t* ks = smem + stage * kTile;
-    const uint16_t* vs = smem + (2 + stage) * kTile;
+  const uint32_t q_tile = base + S::kQ + wg * 64 * kRowBytes;  // this warpgroup's rows
+  float s[kBk / 2];
+  uint32_t pa[kBk / 16][4];
+  float c0, c1;
+  int stage = 0;
+  uint32_t phase = 0;
+  mbar_wait(base + S::kQBar, 0);
 
-    // S = Q K^T: n-tile n covers keys [k0 + 8n, k0 + 8n + 8).
-    float s[kBk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBk / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; kc += 2) {
-#pragma unroll
-      for (int n = 0; n < kBk / 8; ++n) {
-        uint32_t b[4];  // B fragments of chunks kc and kc + 1
-        ldmatrix_x4(b, ks + (n * 8 + ld_row) * kRow + kc * 16 + ld_mat * 8);
-        mma_bf16_16816(s[n], qf[kc], b[0], b[1]);
-        mma_bf16_16816(s[n], qf[kc + 1], b[2], b[3]);
-      }
-    }
+  // The first tile: S, then its softmax; its P V goes out with the next S.
+  mbar_wait(base + S::kFullK + 8 * stage, phase);
+  wgmma_fence();
+  issue_qk<D>(s, q_tile, base + S::kK + stage * S::kStage);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<kBk / 2>(s);
+  if (lane == 0) mbar_arrive(base + S::kEmptyK + 8 * stage);
+  online_softmax(s, p, first * kBk, wq0, row0, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+  rescale_and_pack<D>(acc, pa, s, c0, c1);
+  int pv_stage = stage;
+  uint32_t pv_phase = phase;
+  advance<S::kStages>(stage, phase);
 
-    // Tiles wholly visible to every row of this warp need no mask.
-    const bool interior =
-        k0 + kBk <= p.tk &&
-        (!p.causal || p.k_off + k0 + kBk - 1 <= p.q_off + wq0) &&
-        (p.window == 0 || p.k_off + k0 > p.q_off + wq1 - p.window);
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < kBk / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row0 : row1;
-        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-        s[n][e] = (interior || visible(p, row, key)) ? s[n][e] * scale_log2 : kNegInf;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFullMask, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFullMask, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 2));
-
-    const float c0 = exp2f(m0 - mx0);
-    const float c1 = exp2f(m1 - mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kBk / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mx0);
-      s[n][1] = exp2f(s[n][1] - mx0);
-      s[n][2] = exp2f(s[n][2] - mx1);
-      s[n][3] = exp2f(s[n][3] - mx1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= c0;
-      acc[dn][1] *= c0;
-      acc[dn][2] *= c1;
-      acc[dn][3] *= c1;
-    }
-
-    // O += P V. The S accumulators of n-tiles 2kk and 2kk+1 are exactly the
-    // A fragment of keys [16kk, 16kk+16), once rounded to bf16; V's B
-    // fragments come from transposing 8x8 loads of the row-major tile.
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint16_t* vrow = vs + (kk * 16 + (ld_mat & 1) * 8 + ld_row) * kRow + (ld_mat >> 1) * 8;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
-        uint32_t b[4];  // B fragments of head-dim tiles dn and dn + 1
-        ldmatrix_x4_trans(b, vrow + dn * 8);
-        mma_bf16_16816(acc[dn], a, b[0], b[1]);
-        mma_bf16_16816(acc[dn + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before its refill
-    stage ^= 1;
-    j = j_next;
+  for (int j = next_live(p, range, first + 1, kBk); j < range.tile_end;
+       j = next_live(p, range, j + 1, kBk)) {
+    mbar_wait(base + S::kFullK + 8 * stage, phase);
+    fence_regs<D / 2>(acc);
+    fence_regs<kBk / 4>(&pa[0][0]);
+    wgmma_fence();
+    issue_qk<D>(s, q_tile, base + S::kK + stage * S::kStage);
+    wgmma_commit();
+    mbar_wait(base + S::kFullV + 8 * pv_stage, pv_phase);
+    wgmma_fence();
+    issue_pv<D>(acc, pa, base + S::kV + pv_stage * S::kStage);
+    wgmma_commit();
+    wgmma_wait<1>();  // this tile's S is done; the last tile's P V may not be
+    fence_regs<kBk / 2>(s);
+    if (lane == 0) mbar_arrive(base + S::kEmptyK + 8 * stage);
+    online_softmax(s, p, j * kBk, wq0, row0, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    fence_regs<kBk / 4>(&pa[0][0]);
+    if (lane == 0) mbar_arrive(base + S::kEmptyV + 8 * pv_stage);
+    rescale_and_pack<D>(acc, pa, s, c0, c1);
+    pv_stage = stage;
+    pv_phase = phase;
+    advance<S::kStages>(stage, phase);
   }
+  mbar_wait(base + S::kFullV + 8 * pv_stage, pv_phase);
+  fence_regs<D / 2>(acc);
+  fence_regs<kBk / 4>(&pa[0][0]);
+  wgmma_fence();
+  issue_pv<D>(acc, pa, base + S::kV + pv_stage * S::kStage);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<D / 2>(acc);
+  fence_regs<kBk / 4>(&pa[0][0]);
 
   l0 += __shfl_xor_sync(kFullMask, l0, 1);
   l0 += __shfl_xor_sync(kFullMask, l0, 2);
@@ -446,7 +662,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         *reinterpret_cast<float2*>(arow + dn * 8 + 2 * t4) =
-            make_float2(acc[dn][2 * half], acc[dn][2 * half + 1]);
+            make_float2(acc[4 * dn + 2 * half], acc[4 * dn + 2 * half + 1]);
       }
       if (t4 == 0) {
         p.m[cb + row] = from_log2(half ? m1 : m0);
@@ -460,13 +676,59 @@ __global__ void __launch_bounds__(kThreads)
       const int col = dn * 8 + 2 * t4;
       if (row0 < p.tq) {
         *reinterpret_cast<uint32_t*>(ob + row0 * p.o_st + col) =
-            pack_bf16(acc[dn][0] / l0, acc[dn][1] / l0);
+            pack_bf16(acc[4 * dn] / l0, acc[4 * dn + 1] / l0);
       }
       if (row1 < p.tq) {
         *reinterpret_cast<uint32_t*>(ob + row1 * p.o_st + col) =
-            pack_bf16(acc[dn][2] / l1, acc[dn][3] / l1);
+            pack_bf16(acc[4 * dn + 2] / l1, acc[4 * dn + 3] / l1);
       }
     }
+  }
+}
+
+template <int D, bool kPartial>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_fwd_bf16(const Params params, const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map) {
+  using S = Bf16Smem<D>;
+  const Params p = specialize<kPartial>(params);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h;
+  const int hi = bh % p.h;
+  const int q0 = qt * kBq;
+  const KeyRange range = key_range(p, q0, kBq, kBk);
+  const int first = next_live(p, range, range.tile_begin, kBk);
+  if (kPartial && first >= range.tile_end) return;  // carry stays as it was
+
+  if (threadIdx.x == 0) {
+    mbar_init(base + S::kQBar, 1);
+    for (int st = 0; st < S::kStages; ++st) {
+      mbar_init(base + S::kFullK + 8 * st, 1);
+      mbar_init(base + S::kFullV + 8 * st, 1);
+      mbar_init(base + S::kEmptyK + 8 * st, kConsumers * 4);  // each consumer warp
+      mbar_init(base + S::kEmptyV + 8 * st, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The roles split here and never meet again (setmaxnreg needs that). The
+  // warpgroup index goes through a shuffle so that the compiler sees it is
+  // the same across each warp.
+  const int role = __shfl_sync(kFullMask, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      produce<D>(p, range, first, base, bi, hi, q0, &q_map, &k_map, &v_map);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume<D, kPartial>(p, range, first, base, bh, bi, hi, q0);
   }
 }
 
@@ -474,9 +736,10 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kBqF = 16;  // query rows per block, 8 threads per row
 constexpr int kBkF = 32;  // keys per shared-memory tile
+constexpr int kThreadsF32 = 128;
 
 template <int D, bool kPartial>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreadsF32)
     flash_fwd_f32(const Params params) {
   const Params p = specialize<kPartial>(params);
   __shared__ float qs[kBqF][D + 1];
@@ -500,7 +763,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* kb = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
 
-  for (int idx = threadIdx.x; idx < kBqF * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kBqF * D; idx += kThreadsF32) {
     const int rr = idx / D;
     const int c = idx % D;
     qs[rr][c] = q0 + rr < p.tq ? qb[(q0 + rr) * p.q_st + c] : 0.f;
@@ -523,7 +786,7 @@ __global__ void __launch_bounds__(kThreads)
     if (!tile_live(p, range, k0, kBkF)) continue;
 
     __syncthreads();
-    for (int idx = threadIdx.x; idx < kBkF * D; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kBkF * D; idx += kThreadsF32) {
       const int rr = idx / D;
       const int c = idx % D;
       const int key = k0 + rr;
@@ -589,31 +852,88 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int bq, int smem_bytes, const Params& p,
-                   int bh, cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
+// ---------------------------------------------------------------- launch
+
+// Returned by an entry point when the driver's cuTensorMapEncodeTiled is
+// missing or refuses a q/k/v tensor (cudaError_t's own codes stay below).
+constexpr int kTensorMapRefused = 20000;
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                   void*, const cuuint64_t*, const cuuint64_t*,
+                                   const cuuint32_t*, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(sym);
+    }
   }
-  const dim3 grid((p.tq + bq - 1) / bq, bh);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(p);
+  return fn;
+}
+
+// A TMA map over a bf16 [b, t, h, d] tensor with strides in elements: dims
+// (d, h, t, b) innermost first, boxes of 64 columns x `rows` rows of one
+// (b, h), 128-byte swizzle, zeros past each extent.
+bool make_map(CUtensorMap* map, const void* data, int b, int t, int h, int d,
+              long long sb, long long st, long long sh, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(data),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool kPartial>
+int launch_bf16(const Params& p, int b, cudaStream_t stream) {
+  using S = Bf16Smem<D>;
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, p.q, b, p.tq, p.h, D, p.q_sb, p.q_st, p.q_sh, kBq) ||
+      !make_map(&k_map, p.k, b, p.tk, p.h, D, p.k_sb, p.k_st, p.k_sh, kBk) ||
+      !make_map(&v_map, p.v, b, p.tk, p.h, D, p.v_sb, p.v_st, p.v_sh, kBk)) {
+    return kTensorMapRefused;
+  }
+  const auto kernel = flash_fwd_bf16<D, kPartial>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.tq + kBq - 1) / kBq, b * p.h);
+  kernel<<<grid, kThreadsBf16, S::kAlloc, stream>>>(p, q_map, k_map, v_map);
+  return cudaGetLastError();
+}
+
+template <int D, bool kPartial>
+int launch_f32(const Params& p, int b, cudaStream_t stream) {
+  const dim3 grid((p.tq + kBqF - 1) / kBqF, b * p.h);
+  flash_fwd_f32<D, kPartial><<<grid, kThreadsF32, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool kPartial>
-cudaError_t dispatch(const Params& p, int bh, int d, int dtype_is_bf16,
-                     cudaStream_t s) {
-  if (dtype_is_bf16 && d == 128) {
-    return launch(flash_fwd_bf16<128, kPartial>, kBq, bf16_smem_bytes<128>(), p, bh, s);
-  } else if (dtype_is_bf16 && d == 64) {
-    return launch(flash_fwd_bf16<64, kPartial>, kBq, bf16_smem_bytes<64>(), p, bh, s);
-  } else if (!dtype_is_bf16 && d == 128) {
-    return launch(flash_fwd_f32<128, kPartial>, kBqF, 0, p, bh, s);
-  } else if (!dtype_is_bf16 && d == 64) {
-    return launch(flash_fwd_f32<64, kPartial>, kBqF, 0, p, bh, s);
-  }
+int dispatch(const Params& p, int b, int d, int dtype_is_bf16, cudaStream_t s) {
+  if (dtype_is_bf16 && d == 128) return launch_bf16<128, kPartial>(p, b, s);
+  if (dtype_is_bf16 && d == 64) return launch_bf16<64, kPartial>(p, b, s);
+  if (!dtype_is_bf16 && d == 128) return launch_f32<128, kPartial>(p, b, s);
+  if (!dtype_is_bf16 && d == 64) return launch_f32<64, kPartial>(p, b, s);
   return cudaErrorInvalidValue;
 }
 
@@ -640,8 +960,9 @@ Params make_params(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Each entry launches on `stream` and returns cudaGetLastError() as an int
-// (0 = launched). dtype_is_bf16 selects bf16 (1) or f32 (0); d is 64 or 128.
+// Each entry launches on `stream` and returns 0 when the kernel launched,
+// else a cudaError_t code or kTensorMapRefused. dtype_is_bf16 selects bf16
+// (1) or f32 (0); d is 64 or 128.
 
 // Full causal attention: o = softmax(q k^T * scale) v, all [b, t, h, d].
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -658,8 +979,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.causal = 1;
   p.window = window;
   p.sinks = sinks;
-  return static_cast<int>(dispatch<false>(p, b * h, d, dtype_is_bf16,
-                                          static_cast<cudaStream_t>(stream)));
+  return dispatch<false>(p, b, d, dtype_is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // One ring step: fold k/v [b, tk, h, d] (global key positions from
@@ -681,11 +1001,13 @@ int flash_attention_partial_fwd(const void* q, const void* k, const void* v,
   p.q_off = q_offset;
   p.k_off = k_offset;
   p.causal = causal;
-  return static_cast<int>(dispatch<true>(p, b * h, d, dtype_is_bf16,
-                                         static_cast<cudaStream_t>(stream)));
+  return dispatch<true>(p, b, d, dtype_is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {
+  if (code == kTensorMapRefused) {
+    return "cuTensorMapEncodeTiled is missing or refused a q/k/v tensor map";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -3,9 +3,10 @@ a plain C interface, and loads them with ctypes.
 
 The build runs at first use, from the sources in the package only, into
 ``_build/`` beside them (listed in .gitignore). Each library's file name
-carries a hash of its source and flags, so an edited source rebuilds and a
-stale library is never loaded. ``build`` starts one ``nvcc`` per source,
-all at once, and waits for every one of them.
+carries a hash of its flags and of every file under ``csrc/`` that a source
+may include (``*.cu``, ``*.cuh``, ``*.h``), so an edited source or header
+rebuilds and a stale library is never loaded. ``build`` starts one
+``nvcc`` per source, all at once, and waits for every one of them.
 """
 
 from __future__ import annotations
@@ -34,30 +35,42 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
+
 build_logs: dict[str, str] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (PATH first, then CUDA_HOME/bin), or
+    None where the toolkit does not have it."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError(
-        "nvcc not found (PATH, CUDA_HOME): the port's kernels need the CUDA "
-        "toolkit with sm_90a support"
-    )
+    candidate = Path(home) / "bin" / name
+    return str(candidate) if candidate.exists() else None
+
+
+def _nvcc() -> str:
+    found = cuda_tool("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, CUDA_HOME): the port's kernels need the CUDA "
+            "toolkit with sm_90a support"
+        )
+    return found
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where csrc/<name>.cu's library goes, named by a hash of the flags and
+    of every file under csrc/ that it may include."""
+    digest = hashlib.sha256(f"{name}\0{' '.join(NVCC_FLAGS)}".encode())
+    for path in sorted(CSRC_DIR.iterdir()):
+        if path.suffix in SOURCE_SUFFIXES:
+            digest.update(f"\0{path.name}\0".encode())
+            digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNEL_SOURCES) -> None:

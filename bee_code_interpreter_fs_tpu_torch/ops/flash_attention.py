@@ -110,9 +110,13 @@ def flash_attention_reference(q, k, v, *, scale: float | None = None,
     return out.permute(0, 2, 1, 3)
 
 
+TMA_MAX_STRIDE_BYTES = 2**40  # a TMA tensor map's limit on each stride
+
+
 def _check_kernel_inputs(q, k, v):
     """Raise on q/k/v the kernels do not take: another device or dtype, a
-    dtype other than bf16/f32, d not 64/128, rows not 16-byte aligned."""
+    dtype other than bf16/f32, d not 64/128, rows not 16-byte aligned, a
+    stride TMA cannot address (the bf16 kernel reads through tensor maps)."""
     d = q.shape[-1]
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
@@ -136,6 +140,10 @@ def _check_kernel_inputs(q, k, v):
         if any(s % align for s in x.stride()[:3]) or x.data_ptr() % 16:
             raise ValueError(
                 f"{name} rows must be 16-byte aligned (strides {x.stride()})"
+            )
+        if any(s * x.element_size() >= TMA_MAX_STRIDE_BYTES for s in x.stride()[:3]):
+            raise ValueError(
+                f"{name} strides {x.stride()} reach TMA's 2**40-byte limit"
             )
 
 

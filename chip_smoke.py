@@ -7,11 +7,16 @@ one NVIDIA GPU.
 
 Phases, one line each; any failure exits non-zero:
   env     torch/CUDA versions, the card's name and power limit, TF32 off.
-  build   nvcc of every kernel source under the package's csrc/ (parallel).
+  build   nvcc of every kernel source under the package's csrc/ (parallel);
+          ptxas' registers and spills per kernel and, where the toolkit has
+          cuobjdump, the HGMMA (wgmma), UTMALDG (TMA load) and SYNCS
+          (mbarrier) instructions in each bf16 kernel's SASS.
   parity  each kernel against its plain PyTorch version on the card: the
-          flash kernel (K1) and the ring-step kernel (K2: diagonal, past,
+          flash kernel (K1: also t=40 and t=129 around the 128-row tile, and
+          a head-slice view) and the ring-step kernel (K2: diagonal, past,
           non-causal, klen tail, q padding, folded carry, all-future chunk
-          whose carry must come back bit for bit).
+          whose carry must come back bit for bit, tq=77 against tk=200, and
+          sp_chunks views of a longer tensor).
   path_a  Llama-2-7B forward (bf16, b=2, t=2048, random seeded weights)
           through the flash kernel: 32 launches, finite logits, argmax
           agreement with plain attention; a torch.profiler table of device
@@ -29,7 +34,9 @@ Phases, one line each; any failure exits non-zero:
           ring-flash, ring-plain and Ulysses-flash within 1e-3 relative of
           the no-mesh forward.
   timing  each kernel at its path's shapes beside its bound, its plain
-          version and one PyTorch library call (a yardstick only). K2's
+          version and one PyTorch library call (a yardstick only): K1 at
+          path_a's shape (its JSON numbers) and at path_c's two (the no-mesh
+          forward's [1, 8192, 32, 128] and Ulysses' [1, 8192, 8, 128]). K2's
           JSON numbers are per launch over path_c's mix: per layer, 4
           diagonal and 6 fully visible chunk pairs.
 
@@ -45,6 +52,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -149,6 +157,66 @@ def partial_work(b, tq, tk, h, d, elem, causal_diagonal: bool):
     return 4 * b * h * d * pairs, nbytes
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+
+
+def sass_counts(tool: str, library: Path) -> dict[str, dict[str, int]]:
+    """Per kernel of a built library, named as in the source (template
+    arguments spelled out): how many of its SASS instructions are each of
+    SASS_OPS, from `cuobjdump -sass`."""
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in out.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            spelled = re.search(r"(flash_fwd_\w+?)ILi(\d+)ELb([01])E", name)
+            if spelled:
+                name = (f"{spelled.group(1)}<{spelled.group(2)}, "
+                        f"{'true' if spelled.group(3) == '1' else 'false'}>")
+            current = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if current is not None and op and op.group(1) in current:
+            current[op.group(1)] += 1
+    return counts
+
+
+def time_flash(torch, dev, b, t, h, d, label, plain_iters=5):
+    """K1 (bf16, causal) at one shape beside its bound, its plain version
+    and SDPA; returns the numbers of a kernels-line record."""
+    import torch.nn.functional as F
+
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    iters = max(5, int(50 * (2 * 2048 * 2048 * 32) / (b * t * t * h)))
+    kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v), iters=iters, reps=5)
+    plain_ms = time_ms(torch, lambda: flash_attention_reference(q, k, v),
+                       iters=plain_iters, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        iters=iters, reps=5)
+    flops = 4 * b * h * d * causal_pairs(t)
+    nbytes = 4 * q.numel() * q.element_size()
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[timing] flash_attention {label} b={b} t={t} h={h} d={d} bf16 causal: "
+          f"kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, sdpa "
+          f"{library_ms:.4f} ms", flush=True)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def parity_partial(torch, dev, record) -> None:
     """K2 against its plain version on the card, at path_c's chunk shape."""
     from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
@@ -171,6 +239,7 @@ def parity_partial(torch, dev, record) -> None:
         ("k2_klen_tail_tk1000_d64_f32", 8, 64, f32, c, 1000, 0, 0, True, False, 1e-4),
         ("k2_q_padding_tq77_d64_f32", 8, 64, f32, 77, c, 1000, 0, True, False, 1e-4),
         ("k2_folded_carry_f32", 8, 128, f32, c, c, c, c, True, True, 1e-4),
+        ("k2_tq77_tk200_d64_bf16", 8, 64, bf16, 77, 200, 1000, 0, True, False, 2e-2),
     ]
     for i, (name, h, d, dtype, tq, tk, q_off, k_off, causal, fold_first,
             tol) in enumerate(cases):
@@ -212,6 +281,47 @@ def parity_partial(torch, dev, record) -> None:
         if i == 0:
             record["max_abs_err"] = err
         del q, k, v, carry, got, want, out_got, out_want
+    parity_partial_views(torch, dev)
+
+
+def parity_partial_views(torch, dev) -> None:
+    """K2 on sp_chunks views of one longer tensor, as the ring hands them
+    over: chunks of 1000 rows (not a multiple of the 128-row tile) of a
+    [1, 4000, 8, 128] bf16 tensor; each chunk's tensor maps must end where
+    the chunk does."""
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention_partial,
+        flash_attention_partial_reference,
+        new_carry,
+    )
+    from bee_code_interpreter_fs_tpu_torch.parallel.mesh import sp_chunks
+
+    b, c, h, d, n = 1, 1000, 8, 128, SP
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+    full = [torch.randn((b, n * c, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(3)]
+    qs, ks, vs = (sp_chunks(x, n) for x in full)
+    for q_rank, k_rank in ((2, 2), (3, 1), (1, 2)):
+        kw = dict(q_offset=q_rank * c, k_offset=k_rank * c)
+        got = new_carry(b, h, c, d, dev)
+        flash_attention_partial(qs[q_rank], ks[k_rank], vs[k_rank], *got, **kw)
+        want = flash_attention_partial_reference(
+            qs[q_rank].contiguous(), ks[k_rank].contiguous(), vs[k_rank].contiguous(),
+            *new_carry(b, h, c, d, dev), **kw)
+        name = f"k2_sp_chunk_views_q{q_rank}_k{k_rank}_bf16"
+        if k_rank > q_rank:  # the plain version's padded q-tile reaches the
+            # future chunk here; the kernel's q-tile ends with the chunk
+            same = all(torch.equal(g, f) for g, f in zip(got, new_carry(b, h, c, d, dev)))
+            print(f"[parity] {name}: all-future carry unchanged bit for bit: "
+                  f"{same}", flush=True)
+            check(same, f"{name}: an all-future chunk changed the carry")
+            continue
+        out_got = got[0] / got[2].clamp(min=1e-30)[..., None]
+        out_want = want[0] / want[2].clamp(min=1e-30)[..., None]
+        err = (out_got - out_want).abs().max().item()
+        print(f"[parity] {name}: max_abs_err acc/l {err:.3e} (tolerance 0.02)",
+              flush=True)
+        check(err <= 2e-2, f"{name}: max_abs_err {err} > 0.02")
 
 
 def run_path_c(torch, dev, record) -> None:
@@ -382,8 +492,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import torch.nn.functional as F
-
     from bee_code_interpreter_fs_tpu_torch.models import (
         LlamaConfig,
         decode_step,
@@ -432,12 +540,23 @@ def main(argv=None) -> int:
     if "build" in phases:
         t0 = time.perf_counter()
         _build.build(_build.KERNEL_SOURCES)
-        for name in _build.KERNEL_SOURCES:
-            for line in _build.build_logs.get(name, "").splitlines():
-                if "registers" in line or "spill" in line or "error" in line:
-                    print(f"[build] {name}: {line.strip()}")
         print(f"[build] ok {len(_build.KERNEL_SOURCES)} source(s) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        keep = ("entry function", "registers", "spill", "error", "warning",
+                "wgmma", "setmaxnreg")
+        cuobjdump = _build.cuda_tool("cuobjdump")
+        for name in _build.KERNEL_SOURCES:
+            for line in _build.build_logs.get(name, "").splitlines():
+                if any(word in line for word in keep):
+                    print(f"[build] {name}: {line.strip()}")
+            if cuobjdump is None:
+                print(f"[build] {name}: no cuobjdump in this toolkit, SASS not "
+                      f"counted", flush=True)
+                continue
+            for kernel, ops in sass_counts(cuobjdump, _build.library_path(name)).items():
+                if "bf16" in kernel:
+                    print(f"[build] {name}: {kernel} SASS: "
+                          + ", ".join(f"{op} {n}" for op, n in ops.items()), flush=True)
 
     if "parity" in phases:
         cases = [
@@ -447,9 +566,16 @@ def main(argv=None) -> int:
             ("window256_sinks4_d64_f32", 2, 2048, 8, 64, torch.float32, 256, 4, 1e-4),
             ("tail_t1000_d64_bf16_window", 1, 1000, 8, 64, torch.bfloat16, 100, 4, 2e-2),
             ("tail_t1000_d128_f32", 1, 1000, 8, 128, torch.float32, 0, 0, 1e-4),
+            ("t40_bf16", 2, 40, 32, 128, torch.bfloat16, 0, 0, 2e-2),
+            ("t40_d64_bf16", 2, 40, 8, 64, torch.bfloat16, 0, 0, 2e-2),
+            ("t129_bf16", 2, 129, 32, 128, torch.bfloat16, 0, 0, 2e-2),
+            ("t129_d64_bf16", 2, 129, 8, 64, torch.bfloat16, 0, 0, 2e-2),
+            ("head_slice_view_8_16_bf16", 1, 1000, 32, 128, torch.bfloat16, 0, 0, 2e-2),
         ]
         for i, (name, b, t, h, d, dtype, window, sinks, tol) in enumerate(cases):
             q, k, v = qkv(b, t, h, d, dtype, SEED + i)
+            if "view" in name:  # strided views into the 32 heads, no copy
+                q, k, v = (x[:, :, 8:16] for x in (q, k, v))
             before = flash_attention.launches
             got = flash_attention(q, k, v, window=window, sinks=sinks)
             torch.cuda.synchronize()
@@ -566,26 +692,9 @@ def main(argv=None) -> int:
         run_path_c(torch, dev, record_k2)
 
     if "timing" in phases:
-        b, t, h, d = 2, 2048, 32, 128
-        q, k, v = qkv(b, t, h, d, torch.bfloat16, SEED)
-        kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v), iters=50, reps=5)
-        plain_ms = time_ms(torch, lambda: flash_attention_reference(q, k, v),
-                           iters=5, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = time_ms(
-            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            iters=50, reps=5)
-        flops = 4 * b * h * d * causal_pairs(t)
-        nbytes = 4 * q.numel() * q.element_size()
-        bound_ms, bound_by = bound(flops, nbytes)
-        record.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
-        print(f"[timing] flash_attention b={b} t={t} h={h} d={d} bf16 causal: "
-              f"kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
-              f"bound {record['bound_ms']:.4f} ms ({record['bound_by']}: "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
-              f"plain {plain_ms:.3f} ms, sdpa {library_ms:.4f} ms", flush=True)
-        del q, k, v, qt, kt, vt
+        record.update(time_flash(torch, dev, 2, 2048, 32, 128, "path_a"))
+        time_flash(torch, dev, 1, 8192, 32, 128, "path_c no-mesh", plain_iters=1)
+        time_flash(torch, dev, 1, 8192, 8, 128, "path_c Ulysses", plain_iters=1)
         time_partial(torch, dev, record_k2)
 
     print(f"[done] phases {','.join(phases)} in "

@@ -118,6 +118,52 @@ def test_kernel_wrapper_refuses_strided_head_dim():
         port_fa._launch_kernel(q, q, q, 1.0, 0, 0)
 
 
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "case,message",
+    [
+        ("head_stride_not_16_bytes", "16-byte aligned"),
+        ("base_not_16_bytes", "16-byte aligned"),
+        ("stride_past_tma_limit", "2\\*\\*40"),
+        ("float16", "bfloat16 or float32"),
+        ("d_96", "d in"),
+    ],
+)
+def test_kernel_input_check_refuses_what_tma_cannot_take(case, message):
+    if case == "head_stride_not_16_bytes":  # 68 bf16 = 136 bytes per head
+        q = _bf16((1, 8, 2, 68))[..., :64]
+    elif case == "base_not_16_bytes":  # 4 bf16 = 8 bytes past the start
+        q = _bf16(8 * 2 * 64 + 4)[4:].view(1, 8, 2, 64)
+    elif case == "stride_past_tma_limit":
+        q = _bf16((1, 8, 2, 64)).as_strided((1, 8, 2, 64), (2**39, 128, 64, 1))
+    elif case == "float16":
+        q = torch.zeros((1, 8, 2, 64), dtype=torch.float16)
+    else:
+        q = _bf16((1, 8, 2, 96))
+    with pytest.raises(ValueError, match=message):
+        port_fa._check_kernel_inputs(q, q, q)
+    port_fa._check_kernel_inputs(*(_bf16((1, 8, 2, 64)),) * 3)  # a good one passes
+
+
+def test_library_path_hashes_every_header(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in _build.CSRC_DIR.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
+    (csrc / "tile_loop.cuh").write_bytes(b"// a header\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = _build.library_path("flash_attention")
+    assert before == _build.library_path("flash_attention")  # stable
+    (csrc / "tile_loop.cuh").write_bytes(b"// an edited header\n")
+    after = _build.library_path("flash_attention")
+    assert after != before and after.parent == before.parent
+    (csrc / "notes.txt").write_bytes(b"not a source")
+    assert _build.library_path("flash_attention") == after
+
+
 def test_module_imports_without_nvcc_or_triton():
     code = (
         "import sys, shutil\n"
