@@ -10,8 +10,11 @@ card; without a card it raises instead of running on the CPU
 Layout:
 - ``models/config.py``  LlamaConfig and its presets.
 - ``models/llama.py``   dense single-device Llama: forward (plain or flash
-                        attention), KV-cached prefill/decode, greedy
-                        generation.
+                        attention), KV-cached prefill/decode, greedy and
+                        sampled generation.
+- ``models/quant.py``   int8 / packed int4 weights, int8 KV quantizers.
+- ``models/serving.py`` ServingEngine: continuous batching over cache slots.
+- ``models/paged.py``   PagedServingEngine: the same over a block pool.
 - ``models/convert.py`` JAX parameter pytree (as numpy) -> the port's module.
 - ``ops/flash_attention.py`` causal flash attention: the hand-written
                         CUDA kernel (``csrc/flash_attention.cu``) on CUDA

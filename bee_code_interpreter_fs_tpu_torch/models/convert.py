@@ -4,7 +4,9 @@ The reference keeps every layer's weights stacked on a leading [n_layers]
 axis; here they are split into one Block per layer. JAX's bf16 arrays come
 out of ``np.asarray`` as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects: they cross as their uint16 bits and are viewed back as
-``torch.bfloat16``, bit for bit.
+``torch.bfloat16``, bit for bit. Quantized leaves ({"q", "s"} int8,
+{"q4", "s4"} packed int4) cross as int8 and f32 tensors in the port's
+quantized-leaf modules (models/quant.py).
 """
 
 from __future__ import annotations
@@ -14,18 +16,30 @@ import torch
 
 from bee_code_interpreter_fs_tpu_torch.models.config import LlamaConfig
 from bee_code_interpreter_fs_tpu_torch.models.llama import Llama
+from bee_code_interpreter_fs_tpu_torch.models.quant import (
+    Int4Weight,
+    Int8Weight,
+    set_weight,
+)
 
 _LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
                  "w_gate", "w_up", "w_down")
+_QUANTIZED = {frozenset({"q", "s"}): (Int8Weight, ("q", "s")),
+              frozenset({"q4", "s4"}): (Int4Weight, ("q4", "s4"))}
 
 
-def to_torch(array) -> torch.Tensor:
-    """A numpy array (bf16 included) as a CPU tensor with the same bits."""
+def to_torch(array):
+    """A numpy array (bf16 included) as a CPU tensor with the same bits; a
+    quantized leaf dict as the port's quantized-leaf module."""
     if isinstance(array, dict):
-        raise NotImplementedError(
-            "quantized and LoRA weight leaves come with the models/quant.py "
-            "slice of the port"
-        )
+        kind = _QUANTIZED.get(frozenset(array))
+        if kind is None:
+            raise NotImplementedError(
+                f"weight leaf with keys {sorted(array)}: LoRA and multi-LoRA "
+                "leaves come with the LoRA slice of the port (models/lora.py)"
+            )
+        cls, names = kind
+        return cls(*(to_torch(array[name]) for name in names))
     array = np.ascontiguousarray(np.asarray(array))
     if not array.flags.writeable:  # torch tensors may not alias read-only memory
         array = array.copy()
@@ -34,23 +48,41 @@ def to_torch(array) -> torch.Tensor:
     return torch.from_numpy(array)
 
 
+def _layer(leaf, i: int, device):
+    """Layer i of a stacked leaf, on `device`."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf[i]
+    return type(leaf)(*(t[i].to(device) for t in leaf.buffers()))
+
+
 def params_from_jax(tree, cfg: LlamaConfig, device=None) -> Llama:
     """The port's module holding the reference's weights. `tree` is the
-    reference's parameter pytree with numpy (or array-like) leaves."""
+    reference's parameter pytree with numpy (or array-like) leaves, dense
+    or quantized (models/quant.py's quantize_params / quantize4_params)."""
     model = Llama(cfg, device)
+    dev = model.device
     layers = tree["layers"]
     with torch.no_grad():
         model.embed.copy_(to_torch(tree["embed"]))
         model.final_norm.copy_(to_torch(tree["final_norm"]))
-        model.lm_head.copy_(to_torch(tree["lm_head"]))
+        head = to_torch(tree["lm_head"])
+        if isinstance(head, torch.Tensor):
+            model.lm_head.copy_(head)
+        else:
+            set_weight(model, "lm_head", head.to(dev))
         stacked = {name: to_torch(layers[name]) for name in _LAYER_LEAVES}
         for name, leaf in stacked.items():
-            if leaf.shape[0] != cfg.n_layers:
+            n = (leaf if isinstance(leaf, torch.Tensor)
+                 else next(leaf.buffers())).shape[0]
+            if n != cfg.n_layers:
                 raise ValueError(
-                    f"layers/{name} has {leaf.shape[0]} layers, config "
-                    f"{cfg.n_layers}"
+                    f"layers/{name} has {n} layers, config {cfg.n_layers}"
                 )
         for i, blk in enumerate(model.layers):
             for name, leaf in stacked.items():
-                getattr(blk, name).copy_(leaf[i])
+                value = _layer(leaf, i, dev)
+                if isinstance(value, torch.Tensor):
+                    getattr(blk, name).copy_(value)
+                else:
+                    set_weight(blk, name, value)
     return model

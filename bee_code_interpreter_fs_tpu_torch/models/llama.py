@@ -2,7 +2,8 @@
 bee_code_interpreter_fs_tpu/models/llama.py for the paths this package runs.
 
 Weights keep the reference's [in, out] layout (``h @ W``), bf16 (or the
-config's dtype) on the matmul path and f32 norm weights. The reference's
+config's dtype) on the matmul path and f32 norm weights; a matmul weight
+may be an int8 or int4 leaf (models/quant.py), dequantized at each use. The reference's
 stacked [n_layers, ...] leaves become one ``Block`` per layer in a
 ``ModuleList``, and its layer scan a loop over them. Forward attention is
 "plain" (dense scores, rounded in the model dtype as the reference does)
@@ -10,6 +11,9 @@ or "flash" (ops/flash_attention.py: the CUDA kernel on the card); a mesh
 with sp > 1 runs it sequence-parallel (ring or Ulysses, parallel/). The
 cached decode path (prefill / decode_chunk / decode_step) uses plain
 attention, as the reference does.
+
+Sampling (``sample_generate``, and the serving engines) draws from the
+port's own counter-based stream, not jax.random's (see "sampling" below).
 
 The KV cache is updated IN PLACE: prefill and decode_chunk write their K/V
 into the cache tensors they are given and return that same dict (JAX
@@ -27,6 +31,12 @@ from bee_code_interpreter_fs_tpu_torch.device import resolve_device
 from bee_code_interpreter_fs_tpu_torch.models.config import (
     LlamaConfig,
     check_supported,
+)
+from bee_code_interpreter_fs_tpu_torch.models.quant import (
+    dequantize,
+    dequantize4,
+    is_quantized,
+    is_quantized4,
 )
 from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import flash_attention
 from bee_code_interpreter_fs_tpu_torch.parallel.mesh import Mesh
@@ -49,40 +59,48 @@ def _weight(*shape, dtype, device):
                         requires_grad=False)
 
 
+def _dense_weight(n_in, n_out, dtype, device):
+    return _weight(n_in, n_out, dtype=dtype, device=device)
+
+
 class Block(nn.Module):
     """One decoder layer's weights (the reference's `layers` leaves at one
-    layer index)."""
+    layer index). A matmul weight is a dense Parameter or a quantized leaf
+    (models/quant.py); `matmul_weight(n_in, n_out, dtype, device)` makes
+    each one."""
 
-    def __init__(self, cfg: LlamaConfig, dtype, device):
+    def __init__(self, cfg: LlamaConfig, dtype, device,
+                 matmul_weight=_dense_weight):
         super().__init__()
         dim, hd = cfg.dim, cfg.head_dim
         nh, nkv, hidden = cfg.n_heads, cfg.n_kv_heads, cfg.hidden_dim
         self.attn_norm = _weight(dim, dtype=torch.float32, device=device)
-        self.wq = _weight(dim, nh * hd, dtype=dtype, device=device)
-        self.wk = _weight(dim, nkv * hd, dtype=dtype, device=device)
-        self.wv = _weight(dim, nkv * hd, dtype=dtype, device=device)
-        self.wo = _weight(nh * hd, dim, dtype=dtype, device=device)
+        self.wq = matmul_weight(dim, nh * hd, dtype, device)
+        self.wk = matmul_weight(dim, nkv * hd, dtype, device)
+        self.wv = matmul_weight(dim, nkv * hd, dtype, device)
+        self.wo = matmul_weight(nh * hd, dim, dtype, device)
         self.mlp_norm = _weight(dim, dtype=torch.float32, device=device)
-        self.w_gate = _weight(dim, hidden, dtype=dtype, device=device)
-        self.w_up = _weight(dim, hidden, dtype=dtype, device=device)
-        self.w_down = _weight(hidden, dim, dtype=dtype, device=device)
+        self.w_gate = matmul_weight(dim, hidden, dtype, device)
+        self.w_up = matmul_weight(dim, hidden, dtype, device)
+        self.w_down = matmul_weight(hidden, dim, dtype, device)
 
 
 class Llama(nn.Module):
     """The model's parameters: embed, per-layer blocks, final norm, head
     (run them with ``forward``)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, *,
+                 matmul_weight=_dense_weight):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
         dtype = model_dtype(cfg)
         self.embed = _weight(cfg.vocab_size, cfg.dim, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
-            Block(cfg, dtype, device) for _ in range(cfg.n_layers)
+            Block(cfg, dtype, device, matmul_weight) for _ in range(cfg.n_layers)
         )
         self.final_norm = _weight(cfg.dim, dtype=torch.float32, device=device)
-        self.lm_head = _weight(cfg.dim, cfg.vocab_size, dtype=dtype, device=device)
+        self.lm_head = matmul_weight(cfg.dim, cfg.vocab_size, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -184,15 +202,25 @@ def _expand_gqa(k, v, n_heads):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
-def _mm(h, w, dt):
-    """``h @ W`` for a dense weight (the dense branch of the reference's
-    _w/_mm; quantized and LoRA leaves come with later slices)."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            "quantized and LoRA weight leaves come with the models/quant.py "
-            "slice of the port"
-        )
-    return h @ w.to(dt)
+def _w(leaf, dt):
+    """Matmul-weight accessor: a dense tensor casts to dt (a no-op at the
+    model dtype); int8 and int4 leaves (models/quant.py) dequantize here, at
+    the use site, into a dt copy of the weight."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(dt)
+    if is_quantized(leaf):
+        return dequantize(leaf, dt)
+    if is_quantized4(leaf):
+        return dequantize4(leaf, dt)
+    raise NotImplementedError(
+        f"weight leaf {type(leaf).__name__}: LoRA and multi-LoRA leaves come "
+        "with the LoRA slice of the port (models/lora.py)"
+    )
+
+
+def _mm(h, leaf, dt):
+    """``h @ W`` for any weight-leaf kind the port runs."""
+    return h @ _w(leaf, dt)
 
 
 def transformer_block(x, lp: Block, cfg: LlamaConfig, attn_fn, *, rope_offset=0):
@@ -217,7 +245,7 @@ def transformer_block(x, lp: Block, cfg: LlamaConfig, attn_fn, *, rope_offset=0)
 
 def _logits(params: Llama, x, cfg: LlamaConfig):
     x = _rms_norm(x, params.final_norm, cfg.norm_eps)
-    return (x @ params.lm_head.to(x.dtype)).float()
+    return _mm(x, params.lm_head, x.dtype).float()
 
 
 def _embed(params: Llama, tokens, dt):
@@ -442,3 +470,128 @@ def generate(params: Llama, prompt_tokens, cfg: LlamaConfig, *,
     [b, prompt + max_new_tokens]."""
     return greedy_generate(params, prompt_tokens, cfg,
                            max_new_tokens=max_new_tokens, max_len=max_len)
+
+
+# ---------------------------------------------------------------- sampling
+#
+# The sampling stream. jax.random's threefry bits cannot be reproduced
+# cheaply in torch, so the port has its own counter-based stream and its
+# sampled tokens are NOT the reference's: they are held to nucleus_mask
+# parity, to the stream's invariances (a draw depends only on its key and
+# the sampled token's position; temperature 0 is greedy) and to the
+# softmax by a distribution test. A draw is Gumbel-max: the token at
+# position p of a row with key k is argmax(scaled + g), where g[i] is the
+# Gumbel transform of a 32-bit hash of (k, p, i), computed in int64 torch
+# ops on the logits' device. Keys are 32-bit: `stream_key(seed, ...)` on
+# the host, `fold_key` on the host or the device.
+
+NEG_INF_LOGIT = -1e30  # finite mask value for truncated-sampling logits
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _mul32(h, c: int):
+    """Low 32 bits of h * c, for h in [0, 2**32) (an int or an int64
+    tensor), without an intermediate past 2**49."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    """MurmurHash3's 32-bit finalizer: a bijection of [0, 2**32)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def fold_key(key, data):
+    """The key of `key` folded with `data` (each an int in [0, 2**32) or an
+    int64 tensor of such, broadcast)."""
+    return _fmix32(key ^ _fmix32((data + _GOLDEN) & _M32))
+
+
+def stream_key(*values: int) -> int:
+    """A 32-bit stream key from host ints (a seed, or a seed and an id);
+    each int folds in by its low and high 32-bit halves."""
+    key = 0
+    for v in values:
+        v = int(v) % 2 ** 64
+        key = fold_key(fold_key(key, v & _M32), v >> 32)
+    return key
+
+
+def gumbel_noise(keys, positions, vocab: int):
+    """Gumbel(0, 1) noise [b, vocab] f32 for rows with stream `keys` [b]
+    sampling the token at `positions` [b] (int64 tensors on one device)."""
+    dev = keys.device
+    rows = fold_key(keys.long(), positions.long())
+    cols = torch.arange(vocab, dtype=torch.int64, device=dev)
+    bits = _fmix32(rows[:, None] ^ _fmix32((cols + _GOLDEN) & _M32)[None, :])
+    # 23 bits -> u in (0, 1) exactly: (k + 0.5) / 2**23.
+    u = ((bits >> 9).float() + 0.5) * 2.0 ** -23
+    return -torch.log(-torch.log(u))
+
+
+def nucleus_mask(scaled, top_p):
+    """Top-p truncation: keep the smallest logit-sorted prefix whose
+    cumulative probability reaches top_p. A token survives when the mass
+    strictly before it is < top_p, so the argmax always survives; top_p >=
+    1 keeps every token, bit for bit (an f32 cumulative sum can pass 1.0
+    before the last token, which the reference's rule would then drop).
+    `top_p` broadcasts against the leading dims (a number, or [b, 1])."""
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_desc, dim=-1)
+    mass_before = torch.cumsum(probs, dim=-1) - probs
+    keep = (mass_before < top_p) | (torch.as_tensor(top_p) >= 1.0)
+    kept = torch.where(keep, sorted_desc, torch.inf)
+    cutoff = kept.amin(dim=-1, keepdim=True)
+    return torch.where(scaled < cutoff, NEG_INF_LOGIT, scaled)
+
+
+def _top_k_mask(scaled, top_k: int):
+    kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+    return torch.where(scaled < kth, NEG_INF_LOGIT, scaled)
+
+
+@torch.inference_mode()
+def sample_generate(params: Llama, prompt_tokens, seed: int, cfg: LlamaConfig, *,
+                    max_new_tokens: int, temperature: float = 1.0,
+                    top_k: int = 0, top_p: float | None = None,
+                    max_len: int | None = None, eos_id=None):
+    """Stochastic generation: temperature scaling, optional top-k then
+    top-p truncation, one Gumbel-max draw per row and step from the port's
+    stream (row r's key is stream_key(seed, r); the token at position p
+    draws with position p). `eos_id` pins a row's positions after its first
+    eos. Returns int32 [b, prompt + max_new_tokens] on the params' device."""
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    prompt = torch.as_tensor(prompt_tokens, device=params.device).to(torch.int32)
+    b, prompt_len = prompt.shape
+    max_len = resolve_cache_len(prompt_len + max_new_tokens, max_len)
+    if max_new_tokens == 0:
+        return prompt
+    dev = params.device
+    keys = torch.tensor([stream_key(seed, r) for r in range(b)],
+                        dtype=torch.int64, device=dev)
+    cache = init_cache(cfg, b, max_len, device=dev)
+    logits, cache = prefill(params, prompt, cache, cfg)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    new_tokens = []
+    for i in range(max_new_tokens):
+        scaled = logits / max(temperature, 1e-6)
+        if top_k > 0:
+            scaled = _top_k_mask(scaled, top_k)
+        if top_p is not None:
+            scaled = nucleus_mask(scaled, top_p)
+        positions = torch.full((b,), prompt_len + i, dtype=torch.int64, device=dev)
+        noise = gumbel_noise(keys, positions, scaled.shape[-1])
+        token = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
+        if eos_id is not None:
+            token = torch.where(done, torch.full_like(token, eos_id), token)
+            done = done | (token == eos_id)
+        new_tokens.append(token)
+        if i + 1 < max_new_tokens:
+            logits, cache = decode_step(params, token[:, None], cache,
+                                        prompt_len + i, cfg)
+    return torch.cat([prompt, torch.stack(new_tokens, dim=1)], dim=1)

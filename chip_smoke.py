@@ -25,6 +25,27 @@ Phases, one line each; any failure exits non-zero:
   path_b  greedy_generate on the same weights, 4 prompts x 128 tokens,
           32 new; the first new token equals forward's argmax; a profiler
           table of four decode steps.
+  quant   Llama-2-7B, full depth, int8 and int4 (group 128) weights
+          quantized from path_a's: b=2, t=512 forward against the dense
+          forward of the dequantized weights (argmax agreement >= 0.9; also
+          printed against the bf16 forward), greedy_generate of 4 prompts x
+          128 tokens and 32 new; weight bytes, forward ms, decode ms/step,
+          and the ms of one dequantize of every matmul weight.
+  path_d  the serving engines at Llama-2-7B bf16, full depth: 16 requests
+          (torch.Generator seed 3; prompts 16-512 tokens, 16-128 new; 4
+          share a registered 256-token prefix, 4 sampled at temperature 0.8
+          and top_p 0.9, 2 with log-probs, 1 with penalties) through
+          ServingEngine (8 slots, max_len 1024, bursts of 8, bf16 KV) and
+          PagedServingEngine (int8 KV, blocks of 16). Greedy tokens within
+          0.1 of the teacher-forced forward's maximum logit, exact-argmax
+          share >= 0.9; sampled requests replayed alone give the same
+          tokens; both engines' first tokens equal; the pool's blocks all
+          return and the prefix shares 16 of them. Tokens/s, requests/s,
+          time to first token, ms per decode step in a burst, admission ms
+          per bucket, a profiler table of one burst. Then full width, 4
+          layers, f32, max_len 256: dense-engine tokens equal
+          greedy_generate's, paged int8 equals dense int8, log-probs within
+          1e-4 of a teacher-forced log_softmax.
   path_c  Llama-3-8B sequence-parallel forward (bf16, b=1, t=8192, mesh
           sp=4 on the one card, full depth, random seeded weights): ring +
           flash (exactly 320 ring-step launches, no K1), ring plain, and
@@ -58,7 +79,10 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("env", "build", "parity", "path_a", "path_b", "path_c", "timing")
+import numpy as np
+
+ALL_PHASES = ("env", "build", "parity", "path_a", "path_b", "quant", "path_d",
+              "path_c", "timing")
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 SEED = 0
@@ -114,11 +138,12 @@ def wall_ms(torch, fn) -> float:
 
 
 def print_profile(torch, label: str, fn) -> None:
-    """Device time by kernel for one fn() call, from torch.profiler."""
+    """Device time by kernel for one fn() call, from torch.profiler; the busy
+    share is that kernel time over the wall of an unprofiled call (the
+    profiler slows the host, not the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    unprofiled = wall_ms(torch, fn)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -128,8 +153,9 @@ def print_profile(torch, label: str, fn) -> None:
     # Kernels only: operator rows repeat their kernels' device time.
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"[profile] {label}: wall {wall:.2f} ms (profiled), kernel time "
-          f"{device_us / 1e3:.2f} ms")
+    print(f"[profile] {label}: wall {wall:.2f} ms profiled, {unprofiled:.2f} ms "
+          f"unprofiled; kernel time {device_us / 1e3:.2f} ms, busy "
+          f"{device_us / 1e3 / unprofiled:.1%} of the unprofiled wall")
     print(events.table(sort_by="self_device_time_total", row_limit=12))
 
 
@@ -322,6 +348,356 @@ def parity_partial_views(torch, dev) -> None:
         print(f"[parity] {name}: max_abs_err acc/l {err:.3e} (tolerance 0.02)",
               flush=True)
         check(err <= 2e-2, f"{name}: max_abs_err {err} > 0.02")
+
+
+def percentile(values, q: float) -> float:
+    """The q-quantile of `values` by linear interpolation."""
+    ordered = sorted(values)
+    at = (len(ordered) - 1) * q
+    lo = int(at)
+    hi = min(lo + 1, len(ordered) - 1)
+    return ordered[lo] + (ordered[hi] - ordered[lo]) * (at - lo)
+
+
+def run_quant(torch, dev, params, cfg, gen) -> None:
+    """int8 and int4 (group 128) weights quantized from the bf16 7B params:
+    the b=2, t=512 forward against the dense forward of the dequantized
+    weights, greedy generation, bytes and times."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        decode_step,
+        forward,
+        greedy_generate,
+        init_cache,
+        prefill,
+    )
+    from bee_code_interpreter_fs_tpu_torch.models import quant
+    from bee_code_interpreter_fs_tpu_torch.models.llama import _w
+
+    b, t = 2, 512
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen, device=dev,
+                            dtype=torch.int32)
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        dense_logits = forward(params, tokens, cfg)
+        print(f"[quant] llama2_7b bf16 weights: {quant.quantized_nbytes(params) / 2**30:.2f} "
+              f"GiB", flush=True)
+        for label, make in (("int8", quant.quantize_params),
+                            ("int4 g128", lambda p: quant.quantize4_params(p, 128))):
+            qparams = make(params)
+            nbytes = quant.quantized_nbytes(qparams)
+            logits = forward(qparams, tokens, cfg)
+            check(logits.shape == (b, t, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()), f"{label} logits")
+            deq = quant._with_matmul_weights(qparams, lambda leaf: _w(leaf, bf16))
+            want = forward(deq, tokens, cfg)
+            agree = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
+            diff = (logits - want).abs().max().item()
+            vs_bf16 = (logits.argmax(-1) == dense_logits.argmax(-1)).float().mean().item()
+            del deq, want, logits
+            fwd_ms = min(wall_ms(torch, lambda: forward(qparams, tokens, cfg))
+                         for _ in range(3))
+            leaves = [getattr(blk, name) for blk in qparams.layers
+                      for name in quant.QUANTIZED_LAYER_WEIGHTS] + [qparams.lm_head]
+            deq_ms = min(wall_ms(torch, lambda: [_w(leaf, bf16) for leaf in leaves])
+                         for _ in range(3))
+            out = greedy_generate(qparams, prompts, cfg, max_new_tokens=32)
+            check(out.shape == (4, 160) and bool((out[:, :128] == prompts).all())
+                  and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                  f"{label} greedy_generate output")
+            cache = init_cache(cfg, 4, 160, device=dev)
+            prefill(qparams, prompts, cache, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(31):
+                decode_step(qparams, out[:, 128 + i:129 + i], cache, 128 + i, cfg)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / 31
+            del cache, qparams, leaves
+            torch.cuda.empty_cache()
+            print(f"[quant] llama2_7b {label}: weights {nbytes / 2**30:.2f} GiB; b={b} "
+                  f"t={t} forward argmax agreement with the dequantized dense "
+                  f"forward {agree:.4f} (>= 0.9), max |diff| {diff:.3e}, with the "
+                  f"bf16 forward {vs_bf16:.4f} | forward {fwd_ms:.2f} ms, one "
+                  f"dequantize of every matmul weight {deq_ms:.2f} ms; "
+                  f"greedy_generate 4 x 128, 32 new: decode {step_ms:.2f} ms/step",
+                  flush=True)
+            check(agree >= 0.9, f"{label} argmax agreement {agree} < 0.9")
+        del dense_logits
+
+
+def path_d_traffic(vocab: int):
+    """path_d's 16 requests from torch.Generator seed 3: (prefix tokens,
+    [(prompt, max_new_tokens, submit kwargs, role)])."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+
+    def draw(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=g))
+
+    prefix = torch.randint(0, vocab, (256,), generator=g).tolist()
+    reqs = []
+    for i in range(16):
+        new = draw(16, 128)
+        if i < 4:  # prefixed: the suffix makes the prompt 256-512 tokens
+            n = 0 if i == 0 else draw(1, 256)
+            kw, role = {"prefixed": True}, "prefix"
+        else:
+            n = draw(16, 512)
+            kw, role = {}, "greedy"
+            if 4 <= i < 8:
+                kw, role = dict(temperature=0.8, top_p=0.9, seed=1000 + i), "sampled"
+            elif i in (8, 9):
+                kw, role = dict(logprobs=True), "logprobs"
+            elif i == 10:
+                kw, role = dict(presence_penalty=0.5, frequency_penalty=0.3), "penalty"
+        reqs.append((torch.randint(0, vocab, (n,), generator=g).tolist(), new, kw, role))
+    return prefix, reqs
+
+
+def drive_engine(torch, eng, prefix, reqs):
+    """Submit every request at once, run to the end; returns (results
+    {index: tokens}, logprobs {index: array}, wall s, first-token times s,
+    burst walls ms, admission walls ms by bucket)."""
+    pid = eng.register_prefix(prefix) if prefix else None
+    first_at, bursts, admits = {}, [], {}
+    run_burst, install = eng._run_burst, eng._install
+
+    def timed_burst(*a):
+        t0 = time.perf_counter()
+        out = run_burst(*a)  # ends in the burst's one device-to-host copy
+        bursts.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_install(req, i):
+        n = req.prompt.size
+        bucket = (f"prefix+{eng._suffix_bucket(len(prefix), n)}" if req.prefix_id is not None
+                  and n else "prefix only" if req.prefix_id is not None
+                  else str(eng._bucket_len(n)))
+        t0 = time.perf_counter()
+        out = install(req, i)  # its first token comes to the host
+        admits.setdefault(bucket, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._run_burst, eng._install = timed_burst, timed_install
+    t_start = time.perf_counter()
+    rids = {}
+    for k, (prompt, new, kw, _) in enumerate(reqs):
+        kw = dict(kw)
+        prefixed = kw.pop("prefixed", False)
+
+        def sink(toks, k=k):
+            first_at.setdefault(k, time.perf_counter() - t_start)
+
+        rids[k] = eng.submit(prompt, new, prefix_id=pid if prefixed else None,
+                             on_token=sink, **kw)
+    res = eng.run()
+    wall = time.perf_counter() - t_start
+    eng._run_burst, eng._install = run_burst, install
+    out = {k: res[r] for k, r in rids.items()}
+    lps = {k: eng.take_logprobs(r) for k, r in rids.items()}
+    return out, lps, wall, first_at, bursts, admits, pid
+
+
+def report_engine(label, reqs, out, wall, first_at, bursts, admits, steps) -> None:
+    n_tok = sum(len(v) for v in out.values())
+    ttft = [first_at[k] * 1e3 for k in sorted(first_at)]
+    per_step = [ms / steps for ms in bursts]
+    print(f"[path_d] {label}: {len(reqs)} requests, {n_tok} tokens generated in "
+          f"{wall:.2f} s: {n_tok / wall:.1f} tokens/s, {len(reqs) / wall:.2f} "
+          f"requests/s; time to first token p50 {percentile(ttft, 0.5):.0f} ms, p95 "
+          f"{percentile(ttft, 0.95):.0f} ms (all submitted at once); {len(bursts)} "
+          f"bursts of {steps}: {percentile(per_step, 0.5):.2f} ms per decode step "
+          f"(p50; p95 {percentile(per_step, 0.95):.2f})", flush=True)
+    print(f"[path_d] {label}: admission ms per bucket: " + ", ".join(
+        f"{b} x{len(v)} p50 {percentile(v, 0.5):.1f}" for b, v in sorted(admits.items())),
+        flush=True)
+
+
+def run_path_d(torch, dev, params, cfg) -> None:
+    """The serving engines at Llama-2-7B bf16 width and depth, then the
+    strict f32 check at full width, 4 layers."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        PagedServingEngine,
+        ServingEngine,
+        forward,
+    )
+    from bee_code_interpreter_fs_tpu_torch.models import serving
+    from bee_code_interpreter_fs_tpu_torch.models.quant import dequantize_kv
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_partial,
+    )
+
+    prefix, reqs = path_d_traffic(cfg.vocab_size)
+    steps = 8
+    cfg_dtype = params.embed.dtype
+    flash_attention.launches = flash_attention_partial.launches = 0
+    dense = ServingEngine(params, cfg, n_slots=8, max_len=1024, steps_per_sync=steps)
+    d_out, d_lps, *d_rest = drive_engine(torch, dense, prefix, reqs)
+    report_engine("ServingEngine bf16 KV", reqs, d_out, *d_rest[:4], steps)
+    paged = PagedServingEngine(params, cfg, n_slots=8, max_len=1024, steps_per_sync=steps,
+                               kv_quant=True, block_size=16)
+    total = paged.free_blocks
+    p_out, _, *p_rest = drive_engine(torch, paged, prefix, reqs)
+    report_engine("PagedServingEngine int8 KV", reqs, p_out, *p_rest[:4], steps)
+    print(f"[path_d] flash kernel launches in both engines: "
+          f"{flash_attention.launches} K1, {flash_attention_partial.launches} K2 (the "
+          f"serving path attends with the plain grouped contraction, as the "
+          f"reference's does)", flush=True)
+    with torch.inference_mode():  # one layer's block-table read, as a step makes it
+        pool, tables = paged.pool, paged.tables
+
+        def gathered(name):
+            return pool[name][0][tables].reshape(8, -1, *pool[name].shape[3:])
+
+        gather_ms = time_ms(torch, lambda: [gathered(n) for n in pool], iters=20)
+        read_ms = time_ms(torch, lambda: [dequantize_kv(gathered(q), gathered(s), cfg_dtype)
+                                          for q, s in (("kq", "ks"), ("vq", "vs"))], iters=20)
+    print(f"[path_d] paged int8 block-table read at 8 slots x {tables.shape[1]} blocks "
+          f"of 16: gather {gather_ms:.3f} ms per layer, gather + dequantize "
+          f"{read_ms:.3f} ms per layer, {read_ms * cfg.n_layers:.2f} ms per step",
+          flush=True)
+    shared = paged.stats()["shared_prefix_blocks"]
+    check(shared == 256 // 16, f"paged shared_prefix_blocks {shared} != 16")
+    paged.unregister_prefix(p_rest[-1])
+    check(paged.free_blocks == total == paged.stats()["total_blocks"],
+          f"paged free_blocks {paged.free_blocks} != total {total}")
+    for k, (prompt, new, _, _) in enumerate(reqs):
+        check(len(d_out[k]) == new and len(p_out[k]) == new, f"request {k} length")
+        check(int(d_out[k][0]) == int(p_out[k][0]),
+              f"request {k}: first tokens differ between the engines")
+    with torch.inference_mode():
+        gaps, exact = [], 0
+        lp_err = 0.0
+        for k, (prompt, new, kw, role) in enumerate(reqs):
+            if role in ("sampled", "penalty"):
+                continue
+            full = (prefix if kw.get("prefixed") else []) + prompt + d_out[k].tolist()
+            logits = forward(params, torch.tensor([full[:-1]], device=dev), cfg)[0]
+            at = logits[len(full) - 1 - new:]
+            toks = torch.as_tensor(d_out[k], device=dev).long()
+            picked = at.gather(1, toks[:, None])[:, 0]
+            gaps.append((at.max(-1).values - picked).max().item())
+            exact += int((at.argmax(-1) == toks).sum())
+            if role == "logprobs":
+                want = torch.log_softmax(at, -1).gather(1, toks[:, None])[:, 0]
+                lp_err = max(lp_err, (torch.as_tensor(d_lps[k], device=dev) - want)
+                             .abs().max().item())
+        n_greedy = sum(len(d_out[k]) for k, r in enumerate(reqs)
+                       if r[3] not in ("sampled", "penalty"))
+        share = exact / n_greedy
+        print(f"[path_d] bf16 greedy tokens of ServingEngine vs a teacher-forced "
+              f"forward: largest gap to the maximum logit {max(gaps):.4f} (<= 0.1), "
+              f"exact-argmax share {share:.4f} (>= 0.9) over {n_greedy} tokens; "
+              f"log-probs max |diff| {lp_err:.3e}", flush=True)
+        check(max(gaps) <= 0.1, f"greedy token {max(gaps)} below the maximum logit")
+        check(share >= 0.9, f"exact-argmax share {share} < 0.9")
+        # Alone, each in an engine of the mix's shape (8 slots, 7 idle): a
+        # bf16 matmul over another batch size rounds other bits, which
+        # would move a draw; the stream itself is schedule-free (the f32
+        # check below replays over 1 slot).
+        sampled = [k for k, r in enumerate(reqs) if r[3] == "sampled"]
+        same = True
+        for k in sampled:
+            replay = ServingEngine(params, cfg, n_slots=8, max_len=1024,
+                                   steps_per_sync=steps)
+            rid = replay.submit(reqs[k][0], reqs[k][1], **reqs[k][2])
+            same = same and np.array_equal(replay.run()[rid], d_out[k])
+            del replay
+        print(f"[path_d] {len(sampled)} sampled requests replayed alone give the "
+              f"tokens they had in the mix: {same}", flush=True)
+        check(same, "a sampled request's tokens depend on its batch")
+        busy = ServingEngine(params, cfg, n_slots=8, max_len=1024, steps_per_sync=steps)
+        for prompt, _, _, _ in reqs[4:12]:
+            busy.submit(prompt, 128)
+        busy.step()
+        print_profile(torch, "path_d one ServingEngine burst of 8 steps, 8 slots",
+                      lambda: busy._run_burst())
+        # Every branch of a burst (log-probs, nucleus, penalties) with any
+        # host sync raising; its results are dropped.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            serving._burst(busy._step_fn(), busy.pos, busy.last_tok, busy.remaining,
+                           busy.active, busy.temp, busy.keys, steps, cfg.vocab_size - 1,
+                           True, busy.top_p, (busy.presence, busy.frequency,
+                                              torch.zeros((8, cfg.vocab_size), device=dev,
+                                                          dtype=torch.int32)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("[path_d] a burst of 8 steps with log-probs, top_p, penalties and eos "
+              "runs under torch.cuda.set_sync_debug_mode('error'): no host sync",
+              flush=True)
+        del busy, dense, paged
+        torch.cuda.empty_cache()
+    run_path_d_f32(torch, dev, cfg)
+
+
+def run_path_d_f32(torch, dev, cfg) -> None:
+    """The strict check: full width, 4 layers, f32, max_len 256."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        PagedServingEngine,
+        ServingEngine,
+        forward,
+        greedy_generate,
+        init_params,
+    )
+
+    cfg32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+    g = torch.Generator().manual_seed(4)
+    prefix = torch.randint(0, cfg.vocab_size, (64,), generator=g).tolist()
+    reqs = []
+    for i in range(8):
+        n = int(torch.randint(1 if i < 2 else 16, 97, (1,), generator=g))
+        new = int(torch.randint(8, 33, (1,), generator=g))
+        kw = ({"prefixed": True} if i < 2 else dict(logprobs=True) if i < 4
+              else dict(temperature=0.8, top_p=0.9, seed=i) if i == 7 else {})
+        reqs.append((torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist(), new,
+                     kw, "sampled" if i == 7 else "greedy"))
+    kw = dict(n_slots=4, max_len=256, steps_per_sync=8)
+    with torch.inference_mode():
+        d_out, d_lps, *_ = drive_engine(torch, ServingEngine(params32, cfg32, **kw),
+                                        prefix, reqs)
+        mismatched = []
+        lp_err = 0.0
+        for k, (prompt, new, rkw, role) in enumerate(reqs):
+            full = (prefix if rkw.get("prefixed") else []) + prompt
+            if role == "greedy":
+                want = greedy_generate(params32, torch.tensor([full], device=dev), cfg32,
+                                       max_new_tokens=new)[0, len(full):].cpu().numpy()
+                if not np.array_equal(d_out[k], want):
+                    mismatched.append(k)
+            if rkw.get("logprobs"):
+                seq = torch.tensor([full + d_out[k].tolist()], device=dev)
+                ref = torch.log_softmax(forward(params32, seq[:, :-1], cfg32), -1)[0]
+                toks = torch.as_tensor(d_out[k], device=dev).long()
+                want_lp = ref[len(full) - 1:].gather(1, toks[:, None])[:, 0]
+                lp_err = max(lp_err, (torch.as_tensor(d_lps[k], device=dev) - want_lp)
+                             .abs().max().item())
+        q_out = [drive_engine(torch, cls(params32, cfg32, kv_quant=True, **extra, **kw),
+                              prefix, reqs)[0]
+                 for cls, extra in ((ServingEngine, {}), (PagedServingEngine,
+                                                          {"block_size": 16}))]
+        paged_same = all(np.array_equal(q_out[0][k], q_out[1][k]) for k in range(len(reqs)))
+        alone = ServingEngine(params32, cfg32, n_slots=1, max_len=256, steps_per_sync=5)
+        rid = alone.submit(reqs[7][0], reqs[7][1], **reqs[7][2])
+        replay_same = np.array_equal(alone.run()[rid], d_out[7])
+    print(f"[path_d] full width, 4 layers, f32, max_len 256, {len(reqs)} requests: "
+          f"ServingEngine greedy tokens equal greedy_generate's: {not mismatched} "
+          f"(requests {mismatched} differ); paged int8 equals dense int8: "
+          f"{paged_same}; the sampled request replayed alone over 1 slot and "
+          f"bursts of 5 gives its tokens: {replay_same}; log-probs vs a "
+          f"teacher-forced log_softmax max |diff| {lp_err:.3e} (<= 1e-4)", flush=True)
+    check(not mismatched, f"f32 engine tokens differ from greedy_generate: {mismatched}")
+    check(paged_same, "f32 paged int8 tokens differ from dense int8")
+    check(replay_same, "f32 sampled request's tokens depend on its schedule")
+    check(lp_err <= 1e-4, f"f32 log-probs off by {lp_err}")
+    del params32
+    torch.cuda.empty_cache()
 
 
 def run_path_c(torch, dev, record) -> None:
@@ -597,7 +973,7 @@ def main(argv=None) -> int:
     cfg = LlamaConfig.llama2_7b(attn_impl="flash")
     cfg_plain = dataclasses.replace(cfg, attn_impl="plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    if "path_a" in phases or "path_b" in phases:
+    if {"path_a", "path_b", "quant", "path_d"} & set(phases):
         t0 = time.perf_counter()
         params = init_params(cfg, gen, dev)
         torch.cuda.synchronize()
@@ -685,6 +1061,12 @@ def main(argv=None) -> int:
                   f"{p_len} tokens, {new} new: first token matches forward; "
                   f"prefill {prefill_ms:.2f} ms, decode {step_ms:.2f} ms/step, "
                   f"{b / step_ms * 1e3:.1f} tokens/s", flush=True)
+
+    if "quant" in phases:
+        run_quant(torch, dev, params, cfg_plain, gen)
+
+    if "path_d" in phases:
+        run_path_d(torch, dev, params, cfg_plain)
 
     params = None  # path_c needs the room
     torch.cuda.empty_cache()

@@ -267,8 +267,10 @@ def test_later_slice_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="parallel slice"):
         tl.forward(model, toks, LlamaConfig.tiny(dtype="float32"),
                    mesh=make_mesh(MeshSpec((1, 1, 1, 2)), device="cpu"))
-    with pytest.raises(NotImplementedError, match="quant"):
-        to_torch({"q": np.zeros(2, np.int8), "s": np.ones(1, np.float32)})
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        to_torch({"base": np.zeros((2, 2), np.float32),
+                  "lora_a": np.zeros((2, 1), np.float32),
+                  "lora_b": np.zeros((1, 2), np.float32)})
 
 
 # ---------------------------------------------------------------- hygiene
