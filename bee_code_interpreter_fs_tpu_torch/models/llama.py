@@ -3,7 +3,8 @@ bee_code_interpreter_fs_tpu/models/llama.py for the paths this package runs.
 
 Weights keep the reference's [in, out] layout (``h @ W``), bf16 (or the
 config's dtype) on the matmul path and f32 norm weights; a matmul weight
-may be an int8 or int4 leaf (models/quant.py), dequantized at each use. The reference's
+may be an int8 or int4 leaf (models/quant.py), dequantized at each use, or a LoRA leaf
+(models/lora.py) applied activation-side. The reference's
 stacked [n_layers, ...] leaves become one ``Block`` per layer in a
 ``ModuleList``, and its layer scan a loop over them. Forward attention is
 "plain" (dense scores, rounded in the model dtype as the reference does)
@@ -31,6 +32,10 @@ from bee_code_interpreter_fs_tpu_torch.device import resolve_device
 from bee_code_interpreter_fs_tpu_torch.models.config import (
     LlamaConfig,
     check_supported,
+)
+from bee_code_interpreter_fs_tpu_torch.models.lora import (
+    MultiLoraWeight,
+    is_lora_leaf,
 )
 from bee_code_interpreter_fs_tpu_torch.models.quant import (
     dequantize,
@@ -205,21 +210,41 @@ def _expand_gqa(k, v, n_heads):
 def _w(leaf, dt):
     """Matmul-weight accessor: a dense tensor casts to dt (a no-op at the
     model dtype); int8 and int4 leaves (models/quant.py) dequantize here, at
-    the use site, into a dt copy of the weight."""
+    the use site, into a dt copy of the weight. A LoRA leaf resolves to
+    ``base + a @ b`` (a fallback that builds the [in, out] delta: every
+    model matmul goes through _mm, which never does)."""
     if isinstance(leaf, torch.Tensor):
         return leaf.to(dt)
     if is_quantized(leaf):
         return dequantize(leaf, dt)
     if is_quantized4(leaf):
         return dequantize4(leaf, dt)
-    raise NotImplementedError(
-        f"weight leaf {type(leaf).__name__}: LoRA and multi-LoRA leaves come "
-        "with the LoRA slice of the port (models/lora.py)"
-    )
+    if isinstance(leaf, MultiLoraWeight):
+        raise TypeError(
+            "multi-adapter LoRA leaves select weights per batch row and "
+            "have no single-matrix form; _mm applies them activation-side"
+        )
+    if is_lora_leaf(leaf):
+        return _w(leaf.base, dt) + leaf.lora_a.to(dt) @ leaf.lora_b.to(dt)
+    raise TypeError(f"unknown weight leaf {type(leaf).__name__}")
 
 
 def _mm(h, leaf, dt):
-    """``h @ W`` for any weight-leaf kind the port runs."""
+    """``h @ W`` for any weight-leaf kind the port runs. LoRA leaves apply
+    activation-side, ``h @ base + (h @ a) @ b``: two skinny matmuls, the
+    dense delta never built; a multi-adapter leaf gathers each row's
+    selected adapter (before the cast, so only the b selected ones
+    convert) and runs the two products batched over rows."""
+    if isinstance(leaf, MultiLoraWeight):
+        ids = leaf.lora_ids
+        a_sel = leaf.lora_a_stack[ids].to(dt)  # [b, in, r]
+        b_sel = leaf.lora_b_stack[ids].to(dt)  # [b, r, out]
+        delta = torch.einsum("btr,bro->bto",
+                             torch.einsum("btd,bdr->btr", h, a_sel), b_sel)
+        return _mm(h, leaf.base, dt) + delta
+    if is_lora_leaf(leaf):
+        return (_mm(h, leaf.base, dt)
+                + (h @ leaf.lora_a.to(dt)) @ leaf.lora_b.to(dt))
     return h @ _w(leaf, dt)
 
 
@@ -521,16 +546,22 @@ def stream_key(*values: int) -> int:
     return key
 
 
-def gumbel_noise(keys, positions, vocab: int):
-    """Gumbel(0, 1) noise [b, vocab] f32 for rows with stream `keys` [b]
-    sampling the token at `positions` [b] (int64 tensors on one device)."""
-    dev = keys.device
+def uniform_noise(keys, positions, n: int):
+    """Uniform (0, 1) draws [b, n] f32 for rows with stream `keys` [b] at
+    `positions` [b] (int64 tensors on one device): draw i hashes (key,
+    position, i)."""
     rows = fold_key(keys.long(), positions.long())
-    cols = torch.arange(vocab, dtype=torch.int64, device=dev)
+    cols = torch.arange(n, dtype=torch.int64, device=keys.device)
     bits = _fmix32(rows[:, None] ^ _fmix32((cols + _GOLDEN) & _M32)[None, :])
     # 23 bits -> u in (0, 1) exactly: (k + 0.5) / 2**23.
-    u = ((bits >> 9).float() + 0.5) * 2.0 ** -23
-    return -torch.log(-torch.log(u))
+    return ((bits >> 9).float() + 0.5) * 2.0 ** -23
+
+
+def gumbel_noise(keys, positions, vocab: int):
+    """Gumbel(0, 1) noise [b, vocab] f32 for rows with stream `keys` [b]
+    sampling the token at `positions` [b]: the Gumbel transform of
+    uniform_noise."""
+    return -torch.log(-torch.log(uniform_noise(keys, positions, vocab)))
 
 
 def nucleus_mask(scaled, top_p):
@@ -595,3 +626,184 @@ def sample_generate(params: Llama, prompt_tokens, seed: int, cfg: LlamaConfig, *
             logits, cache = decode_step(params, token[:, None], cache,
                                         prompt_len + i, cfg)
     return torch.cat([prompt, torch.stack(new_tokens, dim=1)], dim=1)
+
+
+# ---------------------------------------------------------------- speculative
+#
+# Lockstep speculative decoding. The reference runs the whole generation as
+# one device loop with the batch-minimum acceptance as its carry; here the
+# loop runs on the host and reads that one int per pass (it is the `pos` of
+# the next pass's decode_chunk). Sampled draws come from the port's stream
+# at three independent sites per position, keyed fold_key(row key, tag):
+# tag 1 the draft's proposal, tag 2 the accept test, tag 3 the boundary
+# (residual or bonus) draw; the first token draws from the row key itself,
+# as sample_generate's does.
+
+_TAG_DRAFT, _TAG_ACCEPT, _TAG_BOUNDARY = 1, 2, 3
+
+
+def _spec_setup(draft_params: Llama, target_params: Llama, prompt_tokens,
+                cfg_draft: LlamaConfig, cfg_target: LlamaConfig, *,
+                max_new_tokens: int, gamma: int, max_len: int | None,
+                plain_decoder: str):
+    """Shared preamble: validation, cache sizing (slack: a pass writes up to
+    gamma positions past the last emitted token, and the output buffer one
+    more), both prefills, and the output buffer with the prompt written.
+    An explicit max_len that cannot hold p + max_new_tokens + gamma + 1
+    raises; it is never enlarged."""
+    if cfg_draft.vocab_size != cfg_target.vocab_size:
+        raise ValueError("draft and target must share a vocabulary")
+    if gamma < 1:
+        raise ValueError(
+            "gamma must be >= 1 (0 proposals leaves nothing to verify; "
+            f"use {plain_decoder} for plain decoding)"
+        )
+    dev = target_params.device
+    if draft_params.device != dev:
+        raise ValueError(f"draft is on {draft_params.device}, target on {dev}")
+    prompt = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
+    b, p = prompt.shape
+    total = p + max_new_tokens + gamma + 1
+    max_len = resolve_cache_len(total, max_len, what="prompt+new+gamma+1")
+    d_cache = init_cache(cfg_draft, b, max_len, device=dev)
+    t_cache = init_cache(cfg_target, b, max_len, device=dev)
+    t_logits, t_cache = prefill(target_params, prompt, t_cache, cfg_target)
+    _, d_cache = prefill(draft_params, prompt, d_cache, cfg_draft)
+    buf = torch.zeros((b, total), dtype=torch.int32, device=dev)
+    buf[:, :p] = prompt
+    return b, p, d_cache, t_cache, t_logits, buf
+
+
+def _row_accept(ok, gamma: int):
+    """Per row, the length of the leading run of True in ok [b, gamma]."""
+    return torch.where(ok.all(dim=1), gamma, torch.argmin(ok.int(), dim=1))
+
+
+@torch.inference_mode()
+def speculative_generate(draft_params: Llama, target_params: Llama, prompt_tokens,
+                         cfg_draft: LlamaConfig, cfg_target: LlamaConfig, *,
+                         max_new_tokens: int, gamma: int = 4,
+                         max_len: int | None = None):
+    """Greedy speculative decoding: the draft proposes gamma tokens one step
+    at a time, the target scores them all in one decode_chunk, and the
+    longest agreeing prefix plus the target's own next token are emitted.
+    The output is greedy_generate(target)'s: the draft decides how many
+    tokens a pass yields, never which. Rows advance in lockstep by the
+    batch-minimum acceptance (rows that agreed longer re-derive the same
+    tokens next pass). Returns int32 [b, prompt + max_new_tokens].
+
+    Each pass reads the acceptance to the host once: it is the next pass's
+    cache position."""
+    b, p, d_cache, t_cache, t_logits, buf = _spec_setup(
+        draft_params, target_params, prompt_tokens, cfg_draft, cfg_target,
+        max_new_tokens=max_new_tokens, gamma=gamma, max_len=max_len,
+        plain_decoder="greedy_generate",
+    )
+    buf[:, p] = torch.argmax(t_logits, dim=-1).to(torch.int32)
+    # Invariant at the top of a pass: n_done tokens emitted; both caches
+    # hold positions 0..L-1, L = p + n_done - 1; buf[:, L] is the newest
+    # emitted token, fed to neither model yet.
+    n_done = 1
+    while n_done < max_new_tokens:
+        L = p + n_done - 1
+        pending = buf[:, L]
+        # gamma + 1 draft steps: the last feeds d_gamma so the draft cache
+        # covers L + gamma when every proposal is accepted.
+        tok, props = pending, []
+        for j in range(gamma + 1):
+            logits, d_cache = decode_step(draft_params, tok[:, None], d_cache,
+                                          L + j, cfg_draft)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            props.append(tok)
+        drafts = torch.stack(props[:gamma], dim=1)  # [b, gamma]
+        chunk = torch.cat([pending[:, None], drafts], dim=1)
+        v_logits, t_cache = decode_chunk(target_params, chunk, t_cache, L,
+                                         cfg_target)
+        t_preds = torch.argmax(v_logits, dim=-1).to(torch.int32)  # [b, gamma+1]
+        accept = int(_row_accept(drafts == t_preds[:, :gamma], gamma).min())
+        # The whole prediction row: positions past the acceptance point
+        # are rewritten by the next pass before they can be emitted.
+        buf[:, L + 1:L + 2 + gamma] = t_preds
+        n_done += accept + 1
+    return buf[:, :p + max_new_tokens]
+
+
+@torch.inference_mode()
+def speculative_sample_generate(draft_params: Llama, target_params: Llama,
+                                prompt_tokens, seed: int, cfg_draft: LlamaConfig,
+                                cfg_target: LlamaConfig, *, max_new_tokens: int,
+                                gamma: int = 4, temperature: float = 1.0,
+                                max_len: int | None = None):
+    """Sampled speculative decoding (accept/resample): the draft samples
+    gamma proposals at `temperature`, the target scores them in one
+    decode_chunk, proposal d_j is accepted when u < p_j(d_j) / q_j(d_j)
+    (strict: u never accepts a token of target probability 0), the first
+    rejection draws from norm(max(0, p_j - q_j)), and a fully accepted
+    pass draws a bonus token from p_{gamma+1}. The emitted sequence is
+    distributed as target-only sampling at the same temperature.
+
+    Rows advance in lockstep by the batch-minimum acceptance: the boundary
+    token is per-row right (a row still accepting there keeps its draft
+    token, a row rejecting there takes its residual draw) and later
+    positions are rewritten by the next pass. Row r's stream key is
+    stream_key(seed, r); draws come from the port's stream (see
+    "sampling"), not jax.random's. One host read per pass, as in
+    speculative_generate. Returns int32 [b, prompt + max_new_tokens]."""
+    temp = max(float(temperature), 1e-6)
+    b, p, d_cache, t_cache, t_logits, buf = _spec_setup(
+        draft_params, target_params, prompt_tokens, cfg_draft, cfg_target,
+        max_new_tokens=max_new_tokens, gamma=gamma, max_len=max_len,
+        plain_decoder="sample_generate",
+    )
+    dev = buf.device
+    vocab = cfg_target.vocab_size
+    keys = torch.tensor([stream_key(seed, r) for r in range(b)],
+                        dtype=torch.int64, device=dev)
+    k_draft, k_accept, k_boundary = (fold_key(keys, tag) for tag in
+                                     (_TAG_DRAFT, _TAG_ACCEPT, _TAG_BOUNDARY))
+
+    def draw(row_keys, scores, position: int):
+        at = torch.full((b,), position, dtype=torch.int64, device=dev)
+        noise = gumbel_noise(row_keys, at, vocab)
+        return torch.argmax(scores + noise, dim=-1).to(torch.int32)
+
+    buf[:, p] = draw(keys, t_logits / temp, p)
+    n_done = 1
+    while n_done < max_new_tokens:
+        L = p + n_done - 1
+        pending = buf[:, L]
+        tok, props, q_logits = pending, [], []
+        for j in range(gamma + 1):
+            logits, d_cache = decode_step(draft_params, tok[:, None], d_cache,
+                                          L + j, cfg_draft)
+            tok = draw(k_draft, logits / temp, L + j + 1)
+            props.append(tok)
+            q_logits.append(logits)
+        drafts = torch.stack(props[:gamma], dim=1)  # [b, gamma]
+        q_probs = torch.softmax(torch.stack(q_logits[:gamma], dim=1) / temp,
+                                dim=-1)  # [b, gamma, V]
+        chunk = torch.cat([pending[:, None], drafts], dim=1)
+        v_logits, t_cache = decode_chunk(target_params, chunk, t_cache, L,
+                                         cfg_target)
+        p_probs = torch.softmax(v_logits / temp, dim=-1)  # [b, gamma+1, V]
+        at_draft = drafts.long()[..., None]
+        p_d = p_probs[:, :gamma].gather(-1, at_draft)[..., 0]
+        q_d = q_probs.gather(-1, at_draft)[..., 0]
+        ratio = p_d / torch.clamp(q_d, min=1e-30)
+        u = uniform_noise(k_accept, torch.full((b,), L, dtype=torch.int64,
+                                               device=dev), gamma)
+        row_accept = _row_accept(u < ratio, gamma)
+        accept = int(row_accept.min())
+        idx = min(accept, gamma - 1)
+        # The boundary draw: the residual at the rejection point; with every
+        # proposal accepted, q := 0 and the residual is p_{gamma+1} itself.
+        p_at = p_probs[:, accept]
+        q_at = q_probs[:, idx] if accept < gamma else torch.zeros_like(p_at)
+        residual = torch.clamp(p_at - q_at, min=0.0)
+        boundary = draw(k_boundary, torch.log(residual + 1e-30), L + 1 + accept)
+        final = torch.where(row_accept > accept, drafts[:, idx], boundary)
+        row = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        row[:, accept] = final
+        buf[:, L + 1:L + 2 + gamma] = row
+        n_done += accept + 1
+    return buf[:, :p + max_new_tokens]

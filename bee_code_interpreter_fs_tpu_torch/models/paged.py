@@ -28,13 +28,11 @@ from __future__ import annotations
 import torch
 
 from bee_code_interpreter_fs_tpu_torch.models.config import LlamaConfig
-from bee_code_interpreter_fs_tpu_torch.models.llama import (
-    decode_valid_mask,
-    model_dtype,
-)
+from bee_code_interpreter_fs_tpu_torch.models.llama import model_dtype
 from bee_code_interpreter_fs_tpu_torch.models.serving import (
     Request,
     ServingEngine,
+    _chunk_valid,
     _chunked_scratch_prefill,
     _decode_layers,
     _int8_kv_store,
@@ -47,22 +45,34 @@ from bee_code_interpreter_fs_tpu_torch.models.serving import (
 __all__ = ["PagedServingEngine"]
 
 
-def _perslot_decode_step_paged(params, tokens, pool, tables, pos, active,
-                               cfg: LlamaConfig):
-    """One decode step over the block pool: write each slot's K/V at its
-    frontier block and offset (in place; inactive slots into the trash
-    block), then attend against the gathered logical cache. tokens [b, 1],
-    tables [b, max_blocks], pos [b], active [b]. Returns logits [b, vocab]."""
+def _perslot_decode_chunk_paged(params, tokens, pool, tables, pos, active,
+                                cfg: LlamaConfig, limit=None):
+    """A decode chunk over the block pool, every slot at its own position:
+    tokens [b, s], tables [b, max_blocks], pos [b], active [b]. Writes land
+    at (table[(pos+j) // bs], (pos+j) % bs) in place; attention reads the
+    gathered logical cache. Returns logits [b, s, vocab].
+
+    Writes of inactive slots go to the trash block (a retired slot's
+    blocks may already belong to another request), and so do writes at a
+    position >= `limit` [b] (None = no limit): a speculative chunk reaches
+    up to gamma positions past a slot's reservation, through table rows
+    the slot does not own. Every emitted position lies below the limit, so
+    only rejected-tail K/V go to the trash."""
     quant = "kq" in pool
     b, max_blocks = tables.shape
+    s = tokens.shape[1]
     ref = pool["kq"] if quant else pool["k"]
     bs = ref.shape[2]
     trash = ref.shape[1] - 1
     logical = max_blocks * bs
-    valid = decode_valid_mask(pos, logical, cfg)[:, None, None, None, :]
-    blk = tables.gather(1, (pos // bs)[:, None])[:, 0]
-    blk = torch.where(active, blk, trash)
-    off = pos % bs
+    qpos = pos[:, None] + torch.arange(s, device=pos.device)[None, :]
+    valid = _chunk_valid(qpos, logical, cfg)
+    ok = active[:, None]
+    if limit is not None:
+        ok = ok & (qpos < limit[:, None])
+    blk = tables.gather(1, torch.clamp(qpos, max=logical - 1) // bs)
+    blk = torch.where(ok, blk, trash)
+    off = qpos % bs
 
     def write_at(leaf, value):
         leaf[blk, off] = value
@@ -174,11 +184,11 @@ class PagedServingEngine(ServingEngine):
                 and pad_to > self.prefill_chunk
                 and pad_to % self.prefill_chunk == 0):
             last_logits, scratch = _chunked_scratch_prefill(
-                self.params, self._padded_prompt(req.prompt, pad_to), n,
+                self._req_params(req), self._padded_prompt(req.prompt, pad_to), n,
                 self.cfg, self.prefill_chunk)
         else:
             last_logits, scratch = _prefill_scratch(
-                self.params, self._padded_prompt(req.prompt, bl), n, self.cfg,
+                self._req_params(req), self._padded_prompt(req.prompt, bl), n, self.cfg,
                 pad_to)
         self._install_scratch(scratch, blks, pad_to, need)
         return self._pick_first(req, last_logits, n), n
@@ -231,7 +241,7 @@ class PagedServingEngine(ServingEngine):
         bl = self._suffix_bucket(plen, n)
         pad_to = self._pad_to_blocks(plen + bl)
         last_logits, scratch = _prefill_scratch_prefixed(
-            self.params, pf["k"], pf["v"], self._padded_prompt(req.prompt, bl),
+            self._req_params(req), pf["k"], pf["v"], self._padded_prompt(req.prompt, bl),
             n, self.cfg, pad_to)
         # Install only the frontier [shared_tok, ...), trimmed to the
         # private reservation (bucket padding can overshoot it).
@@ -291,7 +301,7 @@ class PagedServingEngine(ServingEngine):
         """Decode steps against the block pool; the tables stay constant
         for a burst (reservation admission pre-allocates every block)."""
         def step(tokens, pos, active):
-            return _perslot_decode_step_paged(self.params, tokens, self.pool,
-                                              self.tables, pos, active,
-                                              self.cfg)
+            return _perslot_decode_chunk_paged(
+                self._burst_params, tokens, self.pool, self.tables, pos,
+                active, self.cfg)[:, 0]
         return step

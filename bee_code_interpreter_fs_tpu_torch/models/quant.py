@@ -119,25 +119,36 @@ def set_weight(module: nn.Module, name: str, leaf) -> None:
     setattr(module, name, leaf)
 
 
+def _shallow(module: nn.Module) -> nn.Module:
+    """A copy of `module` whose parameter, buffer and child tables are new
+    dicts holding the same objects: replacing an entry leaves the original
+    as it was, and no tensor is copied."""
+    out = copy.copy(module)
+    out._parameters = dict(module._parameters)
+    out._buffers = dict(module._buffers)
+    out._modules = dict(module._modules)
+    return out
+
+
+def with_layer_weights(params, names, make):
+    """A new model sharing every tensor of `params`, whose layer i weight
+    `name` (for each of `names`) becomes make(name, i, weight)."""
+    out = _shallow(params)
+    layers = nn.ModuleList()
+    for i, blk in enumerate(params.layers):
+        new = _shallow(blk)
+        for name in names:
+            set_weight(new, name, make(name, i, getattr(blk, name)))
+        layers.append(new)
+    out.layers = layers
+    return out
+
+
 def _with_matmul_weights(params, fn):
     """A new model sharing every tensor of `params` except the matmul
     weights, which become fn(weight). No dense weight is copied."""
-
-    def shallow(module):
-        out = copy.copy(module)
-        out._parameters = dict(module._parameters)
-        out._buffers = dict(module._buffers)
-        out._modules = dict(module._modules)
-        return out
-
-    out = shallow(params)
-    layers = nn.ModuleList()
-    for blk in params.layers:
-        new = shallow(blk)
-        for name in QUANTIZED_LAYER_WEIGHTS:
-            set_weight(new, name, fn(getattr(blk, name)))
-        layers.append(new)
-    out.layers = layers
+    out = with_layer_weights(params, QUANTIZED_LAYER_WEIGHTS,
+                             lambda name, i, w: fn(w))
     set_weight(out, "lm_head", fn(params.lm_head))
     return out
 

@@ -33,9 +33,16 @@ batch at token boundaries.
   quantize as they install; decode quantizes each new K/V vector as it
   writes and dequantizes the whole row as attention reads it.
 
+- **Multi-LoRA** (`adapters=`): many fine-tunes of one resident base
+  model share every burst. The adapters stack into one bank with the zero
+  adapter at index 0 (so un-adapted rows compute the exact base model);
+  each slot's adapter index sits in a device tensor that admission writes
+  in place, and every adapted matmul gathers its rows' adapters
+  (models/lora.py). A prefix registered under an adapter serves only that
+  adapter's requests: its K/V depend on the adapter.
+
 The cache is mutated in place. Everything runs on the params' device,
 which is the card unless the engine is built with `device="cpu"`.
-Multi-LoRA serving (`adapters=`) comes with the LoRA slice of the port.
 """
 
 from __future__ import annotations
@@ -63,6 +70,11 @@ from bee_code_interpreter_fs_tpu_torch.models.llama import (
     stream_key,
     transformer_block,
 )
+from bee_code_interpreter_fs_tpu_torch.models.lora import (
+    multi_lora_wrap,
+    stack_loras,
+    zero_lora,
+)
 from bee_code_interpreter_fs_tpu_torch.models.quant import (
     dequantize_kv,
     quantize_kv,
@@ -86,6 +98,7 @@ class Request:
     top_p: float = 1.0  # nucleus truncation (1.0 = off)
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
+    adapter: str | None = None  # multi-LoRA adapter name (None = base)
     generated: list = field(default_factory=list)
     logprobs: list = field(default_factory=list)
 
@@ -121,39 +134,70 @@ def _kv_write_read(quant: bool, write_at, read_tf, dt):
 
 def _decode_layers(params, tokens, store, pos, cfg: LlamaConfig, cache_keys,
                    write_read, valid):
-    """The layer loop of a per-slot decode step: tokens [b, 1] at positions
-    pos [b]; layer i's K/V go through write_read on store[key][i]. Returns
-    logits [b, vocab] f32."""
+    """The layer loop of a per-slot decode chunk: tokens [b, s], slot i's
+    token j at position pos[i] + j; layer i's K/V [b, s, ...] go through
+    write_read on store[key][i]. Returns logits [b, s, vocab] f32."""
     scale = cfg.head_dim ** -0.5
     x = _embed(params, tokens, model_dtype(cfg))
     for i, lp in enumerate(params.layers):
         cs = tuple(store[key][i] for key in cache_keys)
 
         def attn_fn(q, k, v, cs=cs):
-            keys, vals = write_read(cs, k[:, 0], v[:, 0])
+            keys, vals = write_read(cs, k, v)
             return _cached_gqa_attention(q, keys, vals, valid, scale)
 
         x = transformer_block(x, lp, cfg, attn_fn, rope_offset=pos)
-    return _logits(params, x[:, 0], cfg)
+    return _logits(params, x, cfg)
 
 
-def _perslot_decode_step(params, tokens, cache, pos, cfg: LlamaConfig):
-    """One decode step where every slot sits at its own position: tokens
-    [b, 1], pos [b] (int64, on the device). Writes each slot's K/V at
-    (slot, pos[slot]) in place; slot i reads cache positions <= pos[i].
-    Returns logits [b, vocab] f32."""
+def _chunk_valid(qpos, max_len: int, cfg: LlamaConfig):
+    """Visibility of a per-slot chunk, qpos [b, s]: bool [b, 1, 1, s,
+    max_len] for _cached_gqa_attention's [b, g, r, s, k] scores."""
+    b, s = qpos.shape
+    valid = decode_valid_mask(qpos.reshape(-1), max_len, cfg)
+    return valid.reshape(b, s, max_len)[:, None, None]
+
+
+def _perslot_decode_chunk(params, tokens, cache, pos, cfg: LlamaConfig,
+                          max_len: int | None = None):
+    """A decode chunk where every slot starts at its own position: tokens
+    [b, s], slot i's token j at position pos[i] + j (pos [b] int64 on the
+    device). Writes each slot's K/V in place; slot i's query j reads cache
+    positions <= pos[i] + j. Returns logits [b, s, vocab] f32.
+
+    `max_len` (default: the cache's length) is the slot's logical length.
+    A cache allocated one column longer keeps that last column as a
+    scratch column: a write at a position >= max_len lands there and is
+    never read (attention reads columns < max_len). The speculative
+    engines' chunks and draft steps reach up to gamma positions past a
+    slot's end, whose writes the reference drops; without the scratch
+    column such a write raises."""
     quant = "kq" in cache
-    max_len = (cache["kq"] if quant else cache["k"]).shape[2]
-    valid = decode_valid_mask(pos, max_len, cfg)[:, None, None, None, :]
-    bidx = torch.arange(tokens.shape[0], device=pos.device)
+    width = (cache["kq"] if quant else cache["k"]).shape[2]
+    max_len = width if max_len is None else max_len
+    b, s = tokens.shape
+    qpos = pos[:, None] + torch.arange(s, device=pos.device)[None, :]
+    valid = _chunk_valid(qpos, max_len, cfg)
+    bidx = torch.arange(b, device=pos.device)[:, None]
+    cols = torch.clamp(qpos, max=max_len) if width > max_len else qpos
 
     def write_at(leaf, value):
-        leaf[bidx, pos] = value
+        leaf[bidx, cols] = value
 
-    cache_keys, write_read = _kv_write_read(quant, write_at, lambda c: c,
+    def read(leaf):
+        return leaf[:, :max_len] if width > max_len else leaf
+
+    cache_keys, write_read = _kv_write_read(quant, write_at, read,
                                             model_dtype(cfg))
     return _decode_layers(params, tokens, cache, pos, cfg, cache_keys,
                           write_read, valid)
+
+
+def _perslot_decode_step(params, tokens, cache, pos, cfg: LlamaConfig,
+                         max_len: int | None = None):
+    """One decode step where every slot sits at its own position: tokens
+    [b, 1], pos [b]. Returns logits [b, vocab] f32."""
+    return _perslot_decode_chunk(params, tokens, cache, pos, cfg, max_len)[:, 0]
 
 
 def _sample_next(logits, temp, keys, positions, top_p=None):
@@ -292,15 +336,12 @@ class ServingEngine:
                  max_len: int | None = None, steps_per_sync: int = 8,
                  prefill_buckets: tuple = (), eos_id: int | None = None,
                  seed: int = 0, adapters: dict | None = None,
-                 prefill_chunk: int | None = None, kv_quant: bool = False,
-                 device=None):
+                 lora_alpha: float = 16.0, prefill_chunk: int | None = None,
+                 kv_quant: bool = False, device=None):
         """`device`: where the engine runs, the card unless "cpu" is given;
-        `params` must live there."""
-        if adapters:
-            raise NotImplementedError(
-                "multi-LoRA adapter serving comes with the LoRA slice of the "
-                "port (models/lora.py)"
-            )
+        `params` must live there. `adapters`: {name: adapter tree
+        (models/lora.py's init_lora shape)}, served side by side; a
+        request picks one by name, or none for the base model."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine on "
@@ -367,6 +408,55 @@ class ServingEngine:
         self._prefixes: dict[int, dict] = {}
         self._prefix_id = itertools.count()
         self._base_seed = int(seed)
+        self._init_adapters(adapters or {}, float(lora_alpha))
+
+    def _init_adapters(self, adapters: dict, alpha: float):
+        """Stack the adapters (the zero adapter at index 0) and wrap the
+        base twice, once per batch shape the engine runs: the slot bank
+        (bursts) and one row (admission). Each wrap reads its own id tensor,
+        written in place; neither is ever rebuilt."""
+        self._adapter_idx: dict = {None: 0}
+        self._burst_params = self._one_params = self.params
+        if not adapters:
+            return
+        names = list(adapters)
+        for n in names:
+            if not (isinstance(adapters[n], dict) and adapters[n].get("layers")):
+                raise ValueError(
+                    f"adapter {n!r} is not an adapter tree {{'layers': "
+                    "{target: {'a', 'b'}}} (models/lora.py)"
+                )
+        targets = tuple(adapters[names[0]]["layers"])
+        for n in names[1:]:
+            if tuple(adapters[n]["layers"]) != targets:
+                raise ValueError(
+                    f"adapters must share one target set: {names[0]!r} has "
+                    f"{targets}, {n!r} has {tuple(adapters[n]['layers'])}"
+                )
+        first = adapters[names[0]]["layers"][targets[0]]["a"]
+        zero = zero_lora(self.cfg, rank=first.shape[-1], targets=targets,
+                         device=self.device)
+        bank = stack_loras(
+            [zero] + [{"layers": {t: {k: v.to(self.device) for k, v in ab.items()}
+                                  for t, ab in adapters[n]["layers"].items()}}
+                      for n in names],
+            targets=targets, alpha=alpha)
+        self._adapter_idx.update({n: i + 1 for i, n in enumerate(names)})
+        self._slot_ids = torch.zeros(self.n_slots, dtype=torch.int64,
+                                     device=self.device)
+        self._one_id = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._burst_params = multi_lora_wrap(self.params, bank, self._slot_ids)
+        self._one_params = multi_lora_wrap(self.params, bank, self._one_id)
+
+    def _params_for(self, adapter):
+        """The one-row model for `adapter` (admission and prefixes): the
+        base model, or the wrapped one with its id set to the adapter."""
+        if self._one_params is not self.params:
+            self._one_id.fill_(self._adapter_idx[adapter])
+        return self._one_params
+
+    def _req_params(self, req: Request):
+        return self._params_for(req.adapter)
 
     def _init_device_state(self):
         """The KV state: one [n_slots, max_len] cache, int8 per head_dim
@@ -382,9 +472,8 @@ class ServingEngine:
 
     # ------------------------------------------------------------- intake
 
-    @staticmethod
-    def _check_adapter(adapter) -> None:
-        if adapter is not None:  # no adapters: only the base model exists
+    def _check_adapter(self, adapter) -> None:
+        if adapter not in self._adapter_idx:
             raise ValueError(f"unknown adapter {adapter!r}")
 
     @torch.inference_mode()
@@ -401,23 +490,28 @@ class ServingEngine:
                 f"{self.max_len}"
             )
         self._check_adapter(adapter)
+        k, v, row_logits = self._prefix_kv(self._params_for(adapter),
+                                           self.cfg, tokens)
+        pid = next(self._prefix_id)
+        self._prefixes[pid] = {"k": k, "v": v, "last_logits": row_logits,
+                               "len": int(tokens.size), "adapter": adapter}
+        return pid
+
+    def _prefix_kv(self, params, cfg: LlamaConfig, tokens: np.ndarray):
+        """A prefix's K/V [L, 1, plen, ...] and last-position logits,
+        chunked above prefill_chunk."""
         plen = int(tokens.size)
         if self.prefill_chunk is not None and plen > self.prefill_chunk:
             c = self.prefill_chunk
             padded = self._padded_prompt(tokens, -(-plen // c) * c)
             row_logits, scratch = _chunked_scratch_prefill(
-                self.params, padded, plen, self.cfg, c)
-            scratch = {k: scratch[k][:, :, :plen] for k in ("k", "v")}
-        else:
-            scratch = init_cache(self.cfg, 1, plen, device=self.device)
-            batch_logits, scratch = prefill(
-                self.params, torch.from_numpy(tokens[None, :]).to(self.device),
-                scratch, self.cfg)
-            row_logits = batch_logits[0]
-        pid = next(self._prefix_id)
-        self._prefixes[pid] = {"k": scratch["k"], "v": scratch["v"],
-                               "last_logits": row_logits, "len": plen}
-        return pid
+                params, padded, plen, cfg, c)
+            return scratch["k"][:, :, :plen], scratch["v"][:, :, :plen], row_logits
+        scratch = init_cache(cfg, 1, plen, device=self.device)
+        batch_logits, scratch = prefill(
+            params, torch.from_numpy(tokens[None, :]).to(self.device),
+            scratch, cfg)
+        return scratch["k"], scratch["v"], batch_logits[0]
 
     def unregister_prefix(self, prefix_id: int) -> None:
         """Release a registered prefix's K/V. Requests already admitted
@@ -461,7 +555,14 @@ class ServingEngine:
         if prefix_id is not None:
             if prefix_id not in self._prefixes:
                 raise ValueError(f"unknown prefix_id {prefix_id}")
-            plen = self._prefixes[prefix_id]["len"]
+            pf = self._prefixes[prefix_id]
+            if pf["adapter"] != adapter:
+                raise ValueError(
+                    f"prefix {prefix_id} was registered under adapter "
+                    f"{pf['adapter']!r}; request uses {adapter!r}: prefix K/V "
+                    "is adapter-specific"
+                )
+            plen = pf["len"]
         elif prompt.size == 0:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -484,7 +585,7 @@ class ServingEngine:
             Request(rid, prompt, int(max_new_tokens), prefix_id,
                     float(temperature), seed, on_token, bool(logprobs),
                     float(top_p), float(presence_penalty),
-                    float(frequency_penalty))
+                    float(frequency_penalty), adapter)
         )
         return rid
 
@@ -560,30 +661,38 @@ class ServingEngine:
         """Prefill `req`'s prompt into slot `i`'s KV storage. Returns
         (first_token, prompt_end), or None when the engine cannot place it
         now (the paged engine out of blocks): the caller requeues it."""
+        last_logits, prompt_end = self._admit_row(
+            self.cache, self._req_params(req), self.cfg, req, i, "k", "v")
+        return self._pick_first(req, last_logits, prompt_end), prompt_end
+
+    def _admit_row(self, cache, params, cfg: LlamaConfig, req: Request,
+                   i: int, pk: str, pv: str):
+        """Prefill `req`'s prompt with `params` into row `i` of the dense
+        `cache` (a registered prefix's K/V under names pk, pv). Returns
+        (last logits, prompt_end)."""
         n = req.prompt.size
         if req.prefix_id is not None:
             pf = self._prefixes[req.prefix_id]
             plen = pf["len"]
             if n == 0:
-                _install_row(self.cache, pf, i)
-                return self._pick_first(req, pf["last_logits"], plen), plen
+                _install_row(cache, {"k": pf[pk], "v": pf[pv]}, i)
+                return pf["last_logits"], plen
             bl = self._suffix_bucket(plen, n)
             last_logits, scratch = _prefill_scratch_prefixed(
-                self.params, pf["k"], pf["v"],
-                self._padded_prompt(req.prompt, bl), n, self.cfg, plen + bl)
-            _install_row(self.cache, scratch, i)
-            return self._pick_first(req, last_logits, plen + n), plen + n
+                params, pf[pk], pf[pv], self._padded_prompt(req.prompt, bl),
+                n, cfg, plen + bl)
+            _install_row(cache, scratch, i)
+            return last_logits, plen + n
         bl = self._bucket_len(n)
         padded = self._padded_prompt(req.prompt, bl)
         if (self.prefill_chunk is not None and bl > self.prefill_chunk
                 and bl % self.prefill_chunk == 0):
             last_logits, scratch = _chunked_scratch_prefill(
-                self.params, padded, n, self.cfg, self.prefill_chunk)
+                params, padded, n, cfg, self.prefill_chunk)
         else:
-            last_logits, scratch = _prefill_scratch(
-                self.params, padded, n, self.cfg, bl)
-        _install_row(self.cache, scratch, i)
-        return self._pick_first(req, last_logits, n), n
+            last_logits, scratch = _prefill_scratch(params, padded, n, cfg, bl)
+        _install_row(cache, scratch, i)
+        return last_logits, n
 
     def _record_result(self, req: Request) -> None:
         """The one place a finished or cancelled request's channels land."""
@@ -644,6 +753,8 @@ class ServingEngine:
             self.counts[i] = 0
             self.counts[i, first] = 1
         self.keys[i] = self._req_key(req)
+        if self._burst_params is not self.params:
+            self._slot_ids[i] = self._adapter_idx[req.adapter]
         self.last_tok[i] = first
         self.remaining[i] = req.max_new_tokens - 1
         self.active[i] = True
@@ -696,8 +807,8 @@ class ServingEngine:
         engine's KV store."""
         def step(tokens, pos, active):
             del active  # a dense slot's idle frontier rewrite is harmless
-            return _perslot_decode_step(self.params, tokens, self.cache, pos,
-                                        self.cfg)
+            return _perslot_decode_step(self._burst_params, tokens,
+                                        self.cache, pos, self.cfg)
         return step
 
     def _run_burst(self, with_logprobs: bool = False, with_top_p: bool = False,

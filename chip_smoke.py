@@ -46,6 +46,40 @@ Phases, one line each; any failure exits non-zero:
           layers, f32, max_len 256: dense-engine tokens equal
           greedy_generate's, paged int8 equals dense int8, log-probs within
           1e-4 of a teacher-forced log_softmax.
+  path_e  speculative decoding at Llama-2-7B bf16, full depth, with two
+          drafts made of the target's own tensors: the target itself
+          (every proposal accepted) and its first 2 layers with its final
+          norm and head (layer-skip: rejection and resampling).
+          speculative_generate and speculative_sample_generate (T 0.8), 2
+          prompts x 128 tokens, 64 new, gamma 4: tokens/s, target passes,
+          tokens per pass; greedy tokens within 0.1 of a teacher-forced
+          forward's maximum logit, exact share >= 0.9. Then 8 requests
+          (torch.Generator seed 3; prompts 16-256 tokens, 16-64 new; 2
+          behind a 128-token prefix, 2 sampled at T 0.8) through
+          ServingEngine, SpeculativeServingEngine (bf16 KV) and
+          PagedSpeculativeServingEngine (int8 KV, blocks of 16), 4 slots,
+          max_len 512, bursts of 4, layer-skip draft: tokens/s,
+          requests/s, TTFT, ms per pass, tokens per slot-pass; first tokens
+          equal; free_blocks back to the total. Then full width, 4 layers,
+          f32: the speculative engines' greedy tokens equal the plain
+          engine's (bf16 and int8 KV), paged int8 equals dense int8, a
+          sampled request replayed alone keeps its tokens,
+          speculative_generate equals greedy_generate.
+  path_f  at Llama-2-7B bf16: multi-LoRA serving (3 adapters of rank 16
+          with a nonzero b, plus base requests, 8 requests) over the bf16
+          base and the int8 base, tokens against a teacher-forced forward
+          of each adapter's merged (int8: wrapped) model; beam_generate
+          (b=2, 64-token prompts, 32 new, beam 1 and 4); the rolling cache
+          with the window cut to 256 and 4 sinks (a 384-token greedy stream
+          over the ring; its teacher-forced ring logits against
+          forward(attn_impl="flash") under the same window: 32 K1
+          launches, argmax agreement >= 0.9); from_hf_state_dict of an
+          HF-named copy of the weights (tensors and forward bit-equal);
+          checkpoints of 4 layers (bf16 and int8) and an adapter bank
+          (bit-equal, GiB/s). Then full width, 4 layers, f32: multi-LoRA
+          tokens equal greedy_generate over each merged adapter, beam 1
+          equals greedy, rolling logits within 1e-3 relative of the plain
+          windowed forward.
   path_c  Llama-3-8B sequence-parallel forward (bf16, b=1, t=8192, mesh
           sp=4 on the one card, full depth, random seeded weights): ring +
           flash (exactly 320 ring-step launches, no K1), ring plain, and
@@ -61,7 +95,8 @@ Phases, one line each; any failure exits non-zero:
           JSON numbers are per launch over path_c's mix: per layer, 4
           diagonal and 6 fully visible chunk pairs.
 
-The last lines are a JSON object of per-kernel numbers, the card's name and
+Each phase prints its wall time ("[time]"). The last lines are a JSON
+object of per-kernel numbers, the card's name and
 power limit as nvidia-smi prints them, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (count: the cards this run used). Without a CUDA device, or without the
@@ -82,7 +117,7 @@ from pathlib import Path
 import numpy as np
 
 ALL_PHASES = ("env", "build", "parity", "path_a", "path_b", "quant", "path_d",
-              "path_c", "timing")
+              "path_e", "path_f", "path_c", "timing")
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 rate
 SEED = 0
@@ -515,7 +550,7 @@ def report_engine(label, reqs, out, wall, first_at, bursts, admits, steps) -> No
         flush=True)
 
 
-def run_path_d(torch, dev, params, cfg) -> None:
+def run_path_d(torch, dev, params, cfg, figures) -> None:
     """The serving engines at Llama-2-7B bf16 width and depth, then the
     strict f32 check at full width, 4 layers."""
     from bee_code_interpreter_fs_tpu_torch.models import (
@@ -536,6 +571,7 @@ def run_path_d(torch, dev, params, cfg) -> None:
     flash_attention.launches = flash_attention_partial.launches = 0
     dense = ServingEngine(params, cfg, n_slots=8, max_len=1024, steps_per_sync=steps)
     d_out, d_lps, *d_rest = drive_engine(torch, dense, prefix, reqs)
+    figures["path_d_tokens_per_s"] = sum(len(v) for v in d_out.values()) / d_rest[0]
     report_engine("ServingEngine bf16 KV", reqs, d_out, *d_rest[:4], steps)
     paged = PagedServingEngine(params, cfg, n_slots=8, max_len=1024, steps_per_sync=steps,
                                kv_quant=True, block_size=16)
@@ -697,6 +733,638 @@ def run_path_d_f32(torch, dev, cfg) -> None:
     check(replay_same, "f32 sampled request's tokens depend on its schedule")
     check(lp_err <= 1e-4, f"f32 log-probs off by {lp_err}")
     del params32
+    torch.cuda.empty_cache()
+
+
+def layer_cut(params, n_layers: int):
+    """A Llama over the first `n_layers` Blocks of `params` and its embed,
+    final_norm and lm_head: the same tensors, none copied (path_e's
+    layer-skip draft, the 4-layer models of path_f's checkpoints)."""
+    import copy
+
+    from torch import nn
+
+    out = copy.copy(params)
+    out._parameters = dict(params._parameters)
+    out._buffers = dict(params._buffers)
+    out._modules = dict(params._modules)
+    out.layers = nn.ModuleList(list(params.layers)[:n_layers])
+    return out
+
+
+def greedy_criteria(torch, params, cfg, seqs, n_new: int):
+    """The bf16 criteria for greedy tokens (path_d's): each of the last
+    n_new tokens of every sequence in `seqs` ([b, t] or a list of 1-D
+    sequences) against a teacher-forced forward over its prefix: (largest
+    gap to the maximum logit, exact-argmax share, tokens checked)."""
+    from bee_code_interpreter_fs_tpu_torch.models import forward
+
+    dev = params.device
+    gaps, exact, total = [0.0], 0, 0
+    rows = [torch.as_tensor(s, device=dev).reshape(-1) for s in seqs]
+    for row, new in zip(rows, n_new if isinstance(n_new, list) else [n_new] * len(rows)):
+        if new == 0:
+            continue
+        logits = forward(params, row[None, :-1].long(), cfg)[0]
+        at = logits[row.numel() - 1 - new:]
+        toks = row[-new:].long()
+        picked = at.gather(1, toks[:, None])[:, 0]
+        gaps.append((at.max(-1).values - picked).max().item())
+        exact += int((at.argmax(-1) == toks).sum())
+        total += new
+    return max(gaps), exact / max(total, 1), total
+
+
+def count_verify_passes(llama_module, gamma: int):
+    """Wrap models/llama.py's decode_chunk to count the target's verify
+    chunks (gamma + 1 tokens; a draft step is one token). Returns (counter
+    dict, restore function)."""
+    original = llama_module.decode_chunk
+    counter = {"passes": 0}
+
+    def counting(params, tokens, *a, **kw):
+        if tokens.shape[1] == gamma + 1:
+            counter["passes"] += 1
+        return original(params, tokens, *a, **kw)
+
+    llama_module.decode_chunk = counting
+    return counter, lambda: setattr(llama_module, "decode_chunk", original)
+
+
+def spec_traffic(vocab: int, n: int = 8, seed: int = 3):
+    """path_e's requests from torch.Generator `seed`: (prefix tokens,
+    [(prompt, max_new_tokens, submit kwargs, role)]): prompts 16-256
+    tokens, 16-64 new; requests 0-1 behind a 128-token prefix (the prompt
+    is the suffix), 2-3 sampled at temperature 0.8."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=g))
+
+    prefix = torch.randint(0, vocab, (128,), generator=g).tolist()
+    reqs = []
+    for i in range(n):
+        new = draw(16, 64)
+        if i < 2:
+            plen, kw, role = draw(1, 128), {"prefixed": True}, "prefix"
+        else:
+            plen, kw, role = draw(16, 256), {}, "greedy"
+            if i in (2, 3):
+                kw, role = dict(temperature=0.8, seed=2000 + i), "sampled"
+        reqs.append((torch.randint(0, vocab, (plen,), generator=g).tolist(), new, kw, role))
+    return prefix, reqs
+
+
+def drive_counted(torch, eng, prefix, reqs):
+    """drive_engine, also counting each burst's passes: returns its tuple
+    plus (slot-passes, burst-emitted tokens, passes per burst)."""
+    run_burst = eng._run_burst
+    counts = {"slot_passes": 0, "tokens": 0}
+    g1 = getattr(eng, "gamma", 0) + 1
+
+    def counted(*a):
+        toks, emitted, lps = run_burst(*a)
+        # A slot active in a pass emits its first token of the pass.
+        counts["slot_passes"] += int(emitted[::g1].sum())
+        counts["tokens"] += int(emitted.sum())
+        return toks, emitted, lps
+
+    eng._run_burst = counted
+    try:
+        out = drive_engine(torch, eng, prefix, reqs)
+    finally:
+        eng._run_burst = run_burst
+    return (*out, counts)
+
+
+def report_spec(label, reqs, out, wall, first_at, bursts, steps, counts) -> None:
+    n_tok = sum(len(v) for v in out.values())
+    ttft = [first_at[k] * 1e3 for k in sorted(first_at)]
+    per_pass = [ms / steps for ms in bursts]
+    per_slot_pass = counts["tokens"] / max(counts["slot_passes"], 1)
+    print(f"[path_e] {label}: {len(reqs)} requests, {n_tok} tokens in {wall:.2f} s: "
+          f"{n_tok / wall:.1f} tokens/s, {len(reqs) / wall:.2f} requests/s; TTFT p50 "
+          f"{percentile(ttft, 0.5):.0f} ms, p95 {percentile(ttft, 0.95):.0f} ms; "
+          f"{len(bursts)} bursts of {steps} passes: {percentile(per_pass, 0.5):.2f} ms "
+          f"per pass (p50; p95 {percentile(per_pass, 0.95):.2f}); mean tokens per "
+          f"slot-pass {per_slot_pass:.3f} ({counts['tokens']} tokens in "
+          f"{counts['slot_passes']} slot-passes)", flush=True)
+
+
+def run_path_e(torch, dev, params, cfg) -> None:
+    """Speculative decoding at Llama-2-7B bf16, full depth: lockstep
+    generation with a perfect and a layer-skip draft, then both speculative
+    engines beside the plain one; then the strict f32 check."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        PagedSpeculativeServingEngine,
+        ServingEngine,
+        SpeculativeServingEngine,
+        greedy_generate,
+        speculative_generate,
+        speculative_sample_generate,
+    )
+    from bee_code_interpreter_fs_tpu_torch.models import llama as llama_module
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_partial,
+    )
+
+    gamma, b, p_len, new = 4, 2, 128, 64
+    skip_cfg = dataclasses.replace(cfg, n_layers=2)
+    drafts = {"perfect": (params, cfg), "layer-skip": (layer_cut(params, 2), skip_cfg)}
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len),
+                            generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+    flash_attention.launches = flash_attention_partial.launches = 0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        plain = greedy_generate(params, prompts, cfg, max_new_tokens=new)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        print(f"[path_e] greedy_generate {b} prompts x {p_len}, {new} new: "
+              f"{b * new / plain_s:.1f} tokens/s ({plain_s:.2f} s)", flush=True)
+        for name, (draft, dcfg) in drafts.items():
+            for sampled in (False, True):
+                counter, restore = count_verify_passes(llama_module, gamma)
+                t0 = time.perf_counter()
+                try:
+                    if sampled:
+                        out = speculative_sample_generate(
+                            draft, params, prompts, SEED, dcfg, cfg, max_new_tokens=new,
+                            gamma=gamma, temperature=0.8)
+                    else:
+                        out = speculative_generate(draft, params, prompts, dcfg, cfg,
+                                                   max_new_tokens=new, gamma=gamma)
+                    torch.cuda.synchronize()
+                finally:
+                    restore()
+                secs = time.perf_counter() - t0
+                passes = counter["passes"]
+                check(out.shape == (b, p_len + new) and bool((out[:, :p_len] == prompts).all())
+                      and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                      f"path_e {name} output")
+                fn = "speculative_sample_generate T=0.8" if sampled else "speculative_generate"
+                line = (f"[path_e] {fn}, {name} draft, gamma {gamma}: "
+                        f"{b * new / secs:.1f} tokens/s "
+                        f"({secs:.2f} s), {passes} target passes, mean "
+                        f"{(new - 1) / max(passes, 1):.2f} tokens per pass")
+                if not sampled:
+                    gap, share, n = greedy_criteria(torch, params, cfg, out, new)
+                    same = float((out == plain).float()[:, p_len:].mean())
+                    line += (f"; vs a teacher-forced forward: gap {gap:.4f} (<= 0.1), "
+                             f"exact share {share:.4f} (>= 0.9) over {n} tokens; equal to "
+                             f"greedy_generate's at {same:.4f} of positions")
+                    check(gap <= 0.1 and share >= 0.9,
+                          f"path_e {name} greedy tokens: gap {gap}, share {share}")
+                print(line, flush=True)
+
+    prefix, reqs = spec_traffic(cfg.vocab_size)
+    steps = 4
+    kw = dict(n_slots=4, max_len=512, steps_per_sync=steps)
+    skip, _ = drafts["layer-skip"]
+    spec_kw = dict(draft_params=skip, draft_cfg=skip_cfg, gamma=gamma, **kw)
+    runs = {}
+    with torch.inference_mode():
+        for label, make in (
+            ("ServingEngine bf16 KV", lambda: ServingEngine(params, cfg, **kw)),
+            ("SpeculativeServingEngine bf16 KV, layer-skip draft",
+             lambda: SpeculativeServingEngine(params, cfg, **spec_kw)),
+            ("PagedSpeculativeServingEngine int8 KV, blocks of 16, layer-skip draft",
+             lambda: PagedSpeculativeServingEngine(params, cfg, kv_quant=True, block_size=16,
+                                                   **spec_kw)),
+        ):
+            eng = make()
+            total = getattr(eng, "free_blocks", None)
+            out, _, wall, first_at, bursts, _, pid, counts = drive_counted(
+                torch, eng, prefix, reqs)
+            report_spec(label, reqs, out, wall, first_at, bursts, steps, counts)
+            if total is not None:
+                eng.unregister_prefix(pid)
+                check(eng.free_blocks == total == eng.stats()["total_blocks"],
+                      f"{label}: free_blocks {eng.free_blocks} != total {total}")
+            runs[label] = out
+            del eng
+        torch.cuda.empty_cache()
+        labels = list(runs)
+        for k, (prompt, n, _, _) in enumerate(reqs):
+            check(all(len(runs[lb][k]) == n for lb in labels), f"path_e request {k} length")
+            check(len({int(runs[lb][k][0]) for lb in labels}) == 1,
+                  f"path_e request {k}: first tokens differ between the engines")
+        greedy = [k for k, r in enumerate(reqs) if r[3] != "sampled"]
+        seqs = [(prefix if reqs[k][2].get("prefixed") else []) + reqs[k][0]
+                + runs[labels[1]][k].tolist() for k in greedy]
+        gap, share, n = greedy_criteria(torch, params, cfg, seqs,
+                                        [len(runs[labels[1]][k]) for k in greedy])
+        print(f"[path_e] SpeculativeServingEngine bf16 greedy tokens vs a teacher-forced "
+              f"forward: gap {gap:.4f} (<= 0.1), exact share {share:.4f} (>= 0.9) over "
+              f"{n} tokens; {flash_attention.launches} K1 and "
+              f"{flash_attention_partial.launches} K2 launches in the phase (the "
+              f"speculative path attends with the plain grouped contraction, as the "
+              f"reference's does)", flush=True)
+        check(gap <= 0.1 and share >= 0.9, f"path_e engine greedy tokens: {gap}, {share}")
+    run_path_e_f32(torch, dev, cfg)
+
+
+def run_path_e_f32(torch, dev, cfg) -> None:
+    """The strict check: full width, 4 layers, f32, max_len 256, layer-skip
+    draft of 2 layers: both speculative engines' greedy tokens equal the
+    plain engine's, paged int8 equals dense int8, a sampled request replayed
+    alone keeps its tokens; lockstep tokens equal greedy_generate's."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        PagedSpeculativeServingEngine,
+        ServingEngine,
+        SpeculativeServingEngine,
+        greedy_generate,
+        init_params,
+        speculative_generate,
+    )
+
+    cfg32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 6), dev)
+    dcfg32 = dataclasses.replace(cfg32, n_layers=2)
+    draft32 = layer_cut(params32, 2)
+    prefix, reqs = spec_traffic(cfg.vocab_size, seed=6)
+    reqs = [(p[:96], min(n, 32), kw, role) for p, n, kw, role in reqs]
+    kw = dict(n_slots=4, max_len=256, steps_per_sync=4)
+    spec_kw = dict(draft_params=draft32, draft_cfg=dcfg32, gamma=4, **kw)
+    with torch.inference_mode():
+        out = {}
+        for name, make in (
+            ("plain", lambda q: ServingEngine(params32, cfg32, kv_quant=q, **kw)),
+            ("spec", lambda q: SpeculativeServingEngine(params32, cfg32, kv_quant=q,
+                                                        **spec_kw)),
+            ("paged_spec", lambda q: PagedSpeculativeServingEngine(
+                params32, cfg32, kv_quant=q, block_size=16, **spec_kw)),
+        ):
+            for quant in (False, True):
+                out[name, quant] = drive_engine(torch, make(quant), prefix, reqs)[0]
+        greedy = [k for k, r in enumerate(reqs) if r[3] != "sampled"]
+        spec_same = all(np.array_equal(out[e, q][k], out["plain", q][k])
+                        for e in ("spec", "paged_spec") for q in (False, True) for k in greedy)
+        int8_same = all(np.array_equal(out["paged_spec", True][k], out["spec", True][k])
+                        for k in range(len(reqs)))
+        sampled = next(k for k, r in enumerate(reqs) if r[3] == "sampled")
+        alone = SpeculativeServingEngine(params32, cfg32, **dict(spec_kw, n_slots=1,
+                                                                 steps_per_sync=3))
+        rid = alone.submit(reqs[sampled][0], reqs[sampled][1], **reqs[sampled][2])
+        replay_same = np.array_equal(alone.run()[rid], out["spec", False][sampled])
+        prompts = torch.randint(0, cfg.vocab_size, (2, 64),
+                                generator=torch.Generator().manual_seed(SEED + 7)).to(dev)
+        lock = speculative_generate(draft32, params32, prompts, dcfg32, cfg32,
+                                    max_new_tokens=32, gamma=4)
+        lock_same = torch.equal(lock, greedy_generate(params32, prompts, cfg32,
+                                                      max_new_tokens=32))
+    print(f"[path_e] full width, 4 layers, f32, max_len 256, {len(reqs)} requests: "
+          f"speculative engines' greedy tokens (bf16 and int8 KV, dense and paged) "
+          f"equal the plain engine's: {spec_same}; paged int8 equals dense int8 "
+          f"(every request): {int8_same}; a sampled request replayed alone over 1 slot "
+          f"and bursts of 3 keeps its tokens: {replay_same}; speculative_generate "
+          f"equals greedy_generate: {lock_same}", flush=True)
+    check(spec_same, "f32 speculative engine tokens differ from the plain engine's")
+    check(int8_same, "f32 paged int8 speculative tokens differ from dense int8")
+    check(replay_same, "f32 sampled speculative request depends on its schedule")
+    check(lock_same, "f32 speculative_generate differs from greedy_generate")
+    del params32, draft32
+    torch.cuda.empty_cache()
+
+
+def hf_state_dict_of(torch, params, cfg) -> dict:
+    """A HuggingFace-named state dict holding `params`' weights: [out, in]
+    projections, q and k rows back in the rotate-half layout (the inverse
+    of hf_convert._unpermute_rope)."""
+
+    def permute(w_in_out, n_heads):
+        w = w_in_out.T
+        out_dim, in_dim = w.shape
+        hd = out_dim // n_heads
+        return w.reshape(n_heads, hd // 2, 2, in_dim).transpose(1, 2).reshape(out_dim, in_dim)
+
+    sd = {"model.embed_tokens.weight": params.embed, "model.norm.weight": params.final_norm,
+          "lm_head.weight": params.lm_head.T}
+    for i, blk in enumerate(params.layers):
+        pre = f"model.layers.{i}."
+        sd.update({
+            pre + "input_layernorm.weight": blk.attn_norm,
+            pre + "post_attention_layernorm.weight": blk.mlp_norm,
+            pre + "self_attn.q_proj.weight": permute(blk.wq, cfg.n_heads),
+            pre + "self_attn.k_proj.weight": permute(blk.wk, cfg.n_kv_heads),
+            pre + "self_attn.v_proj.weight": blk.wv.T,
+            pre + "self_attn.o_proj.weight": blk.wo.T,
+            pre + "mlp.gate_proj.weight": blk.w_gate.T,
+            pre + "mlp.up_proj.weight": blk.w_up.T,
+            pre + "mlp.down_proj.weight": blk.w_down.T,
+        })
+    return {k: v.detach().contiguous() for k, v in sd.items()}
+
+
+def same_weights(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        sa[k].dtype == sb[k].dtype and bool((sa[k] == sb[k]).all()) for k in sa)
+
+
+def lora_adapters(torch, dev, cfg, n: int, rank: int = 16):
+    """n adapters on DEFAULT_TARGETS with a nonzero b, from seeded card
+    generators: init_lora's a, b ~ N(0, (0.3 / sqrt(rank))**2)."""
+    from bee_code_interpreter_fs_tpu_torch.models import init_lora
+
+    out = []
+    for i in range(n):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10 + i)
+        tree = init_lora(gen, cfg, rank=rank, device=dev)
+        for ab in tree["layers"].values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device=dev)
+                          * 0.3 * rank ** -0.5)
+        out.append(tree)
+    return out
+
+
+def lora_traffic(vocab: int, names):
+    """path_f's 8 requests from torch.Generator seed 8: prompts 16-256
+    tokens, 16-48 new; adapters in turn over `names` and None."""
+    import torch
+
+    g = torch.Generator().manual_seed(8)
+    reqs = []
+    for i in range(8):
+        n = int(torch.randint(16, 257, (1,), generator=g))
+        new = int(torch.randint(16, 49, (1,), generator=g))
+        adapter = (list(names) + [None])[i % (len(names) + 1)]
+        reqs.append((torch.randint(0, vocab, (n,), generator=g).tolist(), new, adapter))
+    return reqs
+
+
+def run_path_f(torch, dev, params, cfg, figures) -> None:
+    """LoRA, beam search, the rolling cache, HF conversion and checkpoints
+    at Llama-2-7B width."""
+    run_path_f_lora(torch, dev, params, cfg, figures)
+    run_path_f_beam(torch, dev, params, cfg)
+    run_path_f_rolling(torch, dev, params,
+                       dataclasses.replace(cfg, sliding_window=256, attention_sinks=4),
+                       torch.Generator(device=dev).manual_seed(SEED + 15))
+    run_path_f_hf(torch, dev, params, cfg)
+    run_path_f_checkpoint(torch, dev, params, cfg)
+    run_path_f_f32(torch, dev, cfg)
+
+
+def run_path_f_lora(torch, dev, params, cfg, figures) -> None:
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        ServingEngine,
+        lora_wrap,
+        merge_lora,
+        quantize_params,
+    )
+
+    names = ("a", "b", "c")
+    adapters = dict(zip(names, lora_adapters(torch, dev, cfg, 3)))
+    reqs = lora_traffic(cfg.vocab_size, names)
+    with torch.inference_mode():
+        for label, base in (("bf16", params), ("int8 (QLoRA)", quantize_params(params))):
+            eng = ServingEngine(base, cfg, n_slots=4, max_len=512, steps_per_sync=8,
+                                adapters=adapters)
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, n, adapter=ad) for p, n, ad in reqs]
+            res = eng.run()
+            wall = time.perf_counter() - t0
+            n_tok = sum(len(res[r]) for r in rids)
+            # path_d's criteria: the largest gap, the exact share over all
+            # tokens (each against its own adapter's model).
+            worst_gap, n_exact, n_checked = 0.0, 0.0, 0
+            for ad in (*names, None):
+                if ad is None:
+                    model = base
+                elif base is params:
+                    model = merge_lora(params, adapters[ad])
+                else:  # a quantized base does not merge: its wrapped model
+                    model = lora_wrap(base, adapters[ad])
+                mine = [k for k, r in enumerate(reqs) if r[2] == ad]
+                gap, share, n = greedy_criteria(
+                    torch, model, cfg, [reqs[k][0] + res[rids[k]].tolist() for k in mine],
+                    [len(res[rids[k]]) for k in mine])
+                worst_gap = max(worst_gap, gap)
+                n_exact += share * n
+                n_checked += n
+                del model
+            share = n_exact / n_checked
+            plain = figures.get("path_d_tokens_per_s")
+            print(f"[path_f] multi-LoRA ServingEngine over the {label} base, 3 adapters of "
+                  f"rank 16 on {'/'.join(adapters['a']['layers'])} + base requests, "
+                  f"{len(reqs)} requests: {n_tok} tokens in {wall:.2f} s, "
+                  f"{n_tok / wall:.1f} tokens/s (path_d's plain ServingEngine: "
+                  f"{'%.1f tokens/s' % plain if plain else 'not run'}); tokens vs a "
+                  f"teacher-forced forward of each adapter's "
+                  f"{'merged' if base is params else 'wrapped'} model: largest gap "
+                  f"{worst_gap:.4f} (<= 0.1), exact share {share:.4f} (>= 0.9) over "
+                  f"{n_checked} tokens", flush=True)
+            check(worst_gap <= 0.1 and share >= 0.9,
+                  f"multi-LoRA {label}: gap {worst_gap}, share {share}")
+            del eng, base
+            torch.cuda.empty_cache()
+
+
+def run_path_f_beam(torch, dev, params, cfg) -> None:
+    from bee_code_interpreter_fs_tpu_torch.models import beam_generate, greedy_generate
+
+    b, p_len, new = 2, 64, 32
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len),
+                            generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
+    with torch.inference_mode():
+        one = beam_generate(params, prompts, cfg, max_new_tokens=new, beam_size=1)
+        same = float((one == greedy_generate(params, prompts, cfg, max_new_tokens=new))
+                     .float()[:, p_len:].mean())
+        t0 = time.perf_counter()
+        four = beam_generate(params, prompts, cfg, max_new_tokens=new, beam_size=4)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    check(four.shape == (b, p_len + new) and bool((four[:, :p_len] == prompts).all())
+          and bool(((four >= 0) & (four < cfg.vocab_size)).all()), "beam 4 output")
+    print(f"[path_f] beam_generate b={b}, {p_len}-token prompts, {new} new: beam 1 equals "
+          f"greedy_generate at {same:.4f} of positions (exact in the f32 check); beam 4 "
+          f"{secs * 1e3 / new:.2f} ms per step ({secs:.2f} s)", flush=True)
+
+
+def run_path_f_hf(torch, dev, params, cfg) -> None:
+    from bee_code_interpreter_fs_tpu_torch.models import forward, from_hf_state_dict
+
+    with torch.inference_mode():
+        sd = hf_state_dict_of(torch, params, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv = from_hf_state_dict(sd, cfg, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del sd
+        equal = same_weights(conv, params)
+        toks = torch.randint(0, cfg.vocab_size, (1, 256),
+                             generator=torch.Generator().manual_seed(SEED + 9)).to(dev)
+        fwd_same = torch.equal(forward(conv, toks, cfg), forward(params, toks, cfg))
+        del conv
+        torch.cuda.empty_cache()
+    print(f"[path_f] from_hf_state_dict on the card, Llama-2-7B bf16 (an HF-named state "
+          f"dict built from the port's weights, q/k rows back in rotate-half order): "
+          f"{secs:.2f} s; tensors equal: {equal}; forward bit-equal: {fwd_same}",
+          flush=True)
+    check(equal and fwd_same, "HF conversion round trip differs")
+
+
+def run_path_f_checkpoint(torch, dev, params, cfg) -> None:
+    import tempfile
+
+    from bee_code_interpreter_fs_tpu_torch.models import forward, quantize_params, stack_loras
+    from bee_code_interpreter_fs_tpu_torch.models.quant import quantized_nbytes
+    from bee_code_interpreter_fs_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    model4 = layer_cut(params, 4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128),
+                         generator=torch.Generator().manual_seed(SEED + 11)).to(dev)
+    bank = stack_loras(lora_adapters(torch, dev, cfg, 2))
+    with torch.inference_mode(), tempfile.TemporaryDirectory() as tmp:
+        for label, tree in (("bf16 4 layers", model4),
+                            ("int8 4 layers", quantize_params(model4)),
+                            (f"LoRA bank of 2, rank 16, {cfg.n_layers} layers", bank)):
+            is_model = not isinstance(tree, dict)
+            nbytes = (quantized_nbytes(tree) if is_model else
+                      sum(t.numel() * t.element_size() for ab in tree["layers"].values()
+                          for t in ab.values()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(Path(tmp) / "ckpt", tree)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = restore_checkpoint(Path(tmp) / "ckpt", like=tree)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            if is_model:
+                equal = same_weights(back, tree)
+                fwd_same = torch.equal(forward(back, toks, cfg4), forward(tree, toks, cfg4))
+            else:
+                equal = fwd_same = all(torch.equal(back["layers"][t][k], ab[k])
+                                       for t, ab in tree["layers"].items() for k in ab)
+            print(f"[path_f] checkpoint {label}: {nbytes / 2**30:.3f} GiB, save "
+                  f"{nbytes / 2**30 / t_save:.2f} GiB/s ({t_save:.2f} s), restore onto the "
+                  f"card {nbytes / 2**30 / t_load:.2f} GiB/s ({t_load:.2f} s); bit-equal: "
+                  f"{equal}; forward bit-equal: {fwd_same}", flush=True)
+            check(equal and fwd_same, f"checkpoint {label} round trip differs")
+            del back
+        del tree
+    torch.cuda.empty_cache()
+
+
+def run_path_f_rolling(torch, dev, params_window, cfg_window, gen) -> None:
+    """The rolling cache at Llama-2-7B width with Mistral's window cut to
+    256 and 4 sinks: a 384-token stream (the ring wraps 1.5 times), greedy
+    over the ring, its teacher-forced logits against the windowed flash
+    forward (K1, counted)."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        forward,
+        init_cache,
+        init_rolling_cache,
+        rolling_decode_logits,
+        rolling_greedy_generate,
+    )
+    from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_partial,
+    )
+
+    b, p_len, new = 2, 320, 64
+    t = p_len + new
+    prompts = torch.randint(0, cfg_window.vocab_size, (b, p_len), generator=gen, device=dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        stream = rolling_greedy_generate(params_window, prompts, cfg_window,
+                                         max_new_tokens=new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        logits = rolling_decode_logits(params_window, stream, cfg_window)
+        greedy_same = torch.equal(stream[:, p_len:].long(),
+                                  logits[:, p_len - 1:-1].argmax(-1))
+        flash_cfg = dataclasses.replace(cfg_window, attn_impl="flash")
+        flash_attention.launches = flash_attention_partial.launches = 0
+        want = forward(params_window, stream, flash_cfg)
+        torch.cuda.synchronize()
+        k1, k2 = flash_attention.launches, flash_attention_partial.launches
+        agree = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
+        diff = (logits - want).abs().max().item()
+        ring = sum(c.numel() * c.element_size()
+                   for c in init_rolling_cache(cfg_window, b, device=dev).values())
+        full = sum(c.numel() * c.element_size()
+                   for c in init_cache(cfg_window, b, t, device=dev).values())
+        del logits, want
+    print(f"[path_f] rolling cache, Llama-2-7B bf16, window {cfg_window.sliding_window}, "
+          f"{cfg_window.attention_sinks} sinks, b={b}: rolling_greedy_generate {p_len} + "
+          f"{new} tokens in {gen_s:.2f} s ({gen_s * 1e3 / t:.2f} ms per step); its tokens "
+          f"equal the argmax of rolling_decode_logits over the same stream: {greedy_same}; "
+          f"rolling logits vs forward(attn_impl='flash') under the same window and sinks "
+          f"({k1} K1, {k2} K2 launches): argmax agreement {agree:.4f} (>= 0.9), max |diff| "
+          f"{diff:.3e}; ring cache {ring / 2**20:.1f} MiB vs init_cache at {t}: "
+          f"{full / 2**20:.1f} MiB", flush=True)
+    check(k1 == cfg_window.n_layers and k2 == 0,
+          f"rolling oracle launched {k1} K1 / {k2} K2, expected {cfg_window.n_layers} / 0")
+    check(greedy_same, "rolling greedy tokens differ from the ring's argmax")
+    check(agree >= 0.9, f"rolling vs windowed flash argmax agreement {agree} < 0.9")
+
+
+def run_path_f_f32(torch, dev, cfg) -> None:
+    """The strict checks at full width, 4 layers, f32: multi-LoRA tokens
+    equal greedy_generate over each merged adapter; beam 1 equals greedy;
+    rolling logits within 1e-3 relative of the plain windowed forward."""
+    from bee_code_interpreter_fs_tpu_torch.models import (
+        ServingEngine,
+        beam_generate,
+        forward,
+        greedy_generate,
+        init_params,
+        merge_lora,
+        rolling_decode_logits,
+    )
+
+    cfg32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED + 12), dev)
+    names = ("a", "b", "c")
+    adapters = dict(zip(names, lora_adapters(torch, dev, cfg32, 3)))
+    reqs = [(p[:96], min(n, 24), ad) for p, n, ad in lora_traffic(cfg.vocab_size, names)]
+    with torch.inference_mode():
+        eng = ServingEngine(params32, cfg32, n_slots=4, max_len=256, steps_per_sync=8,
+                            adapters=adapters)
+        rids = [eng.submit(p, n, adapter=ad) for p, n, ad in reqs]
+        res = eng.run()
+        mismatched = []
+        for ad in (*names, None):
+            model = params32 if ad is None else merge_lora(params32, adapters[ad])
+            for k, (p, n, a) in enumerate(reqs):
+                if a != ad:
+                    continue
+                want = greedy_generate(model, torch.tensor([p], device=dev), cfg32,
+                                       max_new_tokens=n)[0, len(p):].cpu().numpy()
+                if not np.array_equal(res[rids[k]], want):
+                    mismatched.append(k)
+            del model
+        prompts = torch.randint(0, cfg.vocab_size, (2, 64),
+                                generator=torch.Generator().manual_seed(SEED + 13)).to(dev)
+        beam_same = torch.equal(
+            beam_generate(params32, prompts, cfg32, max_new_tokens=32, beam_size=1),
+            greedy_generate(params32, prompts, cfg32, max_new_tokens=32))
+        wcfg = dataclasses.replace(cfg32, sliding_window=256, attention_sinks=4)
+        stream = torch.randint(0, cfg.vocab_size, (2, 384),
+                               generator=torch.Generator().manual_seed(SEED + 14)).to(dev)
+        got = rolling_decode_logits(params32, stream, wcfg)
+        want = forward(params32, stream, wcfg)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[path_f] full width, 4 layers, f32: multi-LoRA engine tokens equal "
+          f"greedy_generate over each merged adapter (and the base): {not mismatched} "
+          f"(requests {mismatched} differ); beam 1 equals greedy_generate: {beam_same}; "
+          f"rolling logits (window 256, 4 sinks, 384 tokens) vs the plain windowed "
+          f"forward: relative error {rel:.3e} (<= 1e-3)", flush=True)
+    check(not mismatched, f"f32 multi-LoRA tokens differ: {mismatched}")
+    check(beam_same, "f32 beam 1 differs from greedy_generate")
+    check(rel <= 1e-3, f"f32 rolling relative error {rel} > 1e-3")
+    del params32, eng
     torch.cuda.empty_cache()
 
 
@@ -904,6 +1572,13 @@ def main(argv=None) -> int:
                             dtype=torch.float32).to(dtype) for _ in range(3)]
 
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_time(name):
+        now = time.perf_counter()
+        print(f"[time] {name} {now - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = now
+
     if "env" in phases:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -912,6 +1587,7 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} | allow_tf32 matmul="
               f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
               f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        phase_time("env")
 
     if "build" in phases:
         t0 = time.perf_counter()
@@ -933,6 +1609,7 @@ def main(argv=None) -> int:
                 if "bf16" in kernel:
                     print(f"[build] {name}: {kernel} SASS: "
                           + ", ".join(f"{op} {n}" for op, n in ops.items()), flush=True)
+        phase_time("build")
 
     if "parity" in phases:
         cases = [
@@ -968,12 +1645,13 @@ def main(argv=None) -> int:
                 record["max_abs_err"] = err
             del q, k, v, got, want
         parity_partial(torch, dev, record_k2)
+        phase_time("parity")
 
     params = None
     cfg = LlamaConfig.llama2_7b(attn_impl="flash")
     cfg_plain = dataclasses.replace(cfg, attn_impl="plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    if {"path_a", "path_b", "quant", "path_d"} & set(phases):
+    if {"path_a", "path_b", "quant", "path_d", "path_e", "path_f"} & set(phases):
         t0 = time.perf_counter()
         params = init_params(cfg, gen, dev)
         torch.cuda.synchronize()
@@ -981,6 +1659,7 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
               flush=True)
+        phase_time("init")
 
     if "path_a" in phases:
         b, t = 2, 2048
@@ -1025,6 +1704,7 @@ def main(argv=None) -> int:
                   f"plain relative error {rel:.3e} (<= 1e-3)", flush=True)
             check(rel <= 1e-3, f"f32 flash vs plain relative error {rel} > 1e-3")
             del params32, flash32, plain32
+        phase_time("path_a")
 
     if "path_b" in phases:
         b, p_len, new = 4, 128, 32
@@ -1061,23 +1741,37 @@ def main(argv=None) -> int:
                   f"{p_len} tokens, {new} new: first token matches forward; "
                   f"prefill {prefill_ms:.2f} ms, decode {step_ms:.2f} ms/step, "
                   f"{b / step_ms * 1e3:.1f} tokens/s", flush=True)
+        phase_time("path_b")
 
     if "quant" in phases:
         run_quant(torch, dev, params, cfg_plain, gen)
+        phase_time("quant")
 
+    figures: dict = {}
     if "path_d" in phases:
-        run_path_d(torch, dev, params, cfg_plain)
+        run_path_d(torch, dev, params, cfg_plain, figures)
+        phase_time("path_d")
+
+    if "path_e" in phases:
+        run_path_e(torch, dev, params, cfg_plain)
+        phase_time("path_e")
+
+    if "path_f" in phases:
+        run_path_f(torch, dev, params, cfg_plain, figures)
+        phase_time("path_f")
 
     params = None  # path_c needs the room
     torch.cuda.empty_cache()
     if "path_c" in phases:
         run_path_c(torch, dev, record_k2)
+        phase_time("path_c")
 
     if "timing" in phases:
         record.update(time_flash(torch, dev, 2, 2048, 32, 128, "path_a"))
         time_flash(torch, dev, 1, 8192, 32, 128, "path_c no-mesh", plain_iters=1)
         time_flash(torch, dev, 1, 8192, 8, 128, "path_c Ulysses", plain_iters=1)
         time_partial(torch, dev, record_k2)
+        phase_time("timing")
 
     print(f"[done] phases {','.join(phases)} in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

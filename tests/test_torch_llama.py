@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from bee_code_interpreter_fs_tpu.models import llama as jl  # noqa: E402
 from bee_code_interpreter_fs_tpu_torch.models import llama as tl  # noqa: E402
 from bee_code_interpreter_fs_tpu_torch.models.config import LlamaConfig  # noqa: E402
+from bee_code_interpreter_fs_tpu_torch.models.hf_convert import from_hf_state_dict  # noqa: E402
 from bee_code_interpreter_fs_tpu_torch.models.convert import (  # noqa: E402
     params_from_jax,
     to_torch,
@@ -267,10 +268,10 @@ def test_later_slice_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="parallel slice"):
         tl.forward(model, toks, LlamaConfig.tiny(dtype="float32"),
                    mesh=make_mesh(MeshSpec((1, 1, 1, 2)), device="cpu"))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        to_torch({"base": np.zeros((2, 2), np.float32),
-                  "lora_a": np.zeros((2, 1), np.float32),
-                  "lora_b": np.zeros((1, 2), np.float32)})
+    with pytest.raises(NotImplementedError, match="MoE"):
+        from_hf_state_dict({"model.layers.0.block_sparse_moe.gate.weight":
+                            np.zeros((4, 64), np.float32)},
+                           LlamaConfig.tiny(dtype="float32"), device="cpu")
 
 
 # ---------------------------------------------------------------- hygiene

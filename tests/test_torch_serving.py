@@ -203,7 +203,7 @@ def test_prefix_and_bucket_errors_match_jax(tiny, jax_runs):
 
 def test_engine_device_rules(tiny):
     _, _, model, tcfg, _ = tiny
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(ValueError, match="not an adapter tree"):
         ServingEngine(model, tcfg, adapters={"math": {}}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
