@@ -21,7 +21,16 @@ batch at token boundaries.
   (per-slot RoPE, masks and cache writes at each slot's frontier). EOS and
   budgets deactivate slots on the device; after the burst one copy brings
   the emitted tokens, their flags and log-probs (and the active flags) to
-  the host.
+  the host. The burst's carried state and that copy's buffer are static
+  storage, written in place. On the card the burst is one CUDA graph per
+  variant (log-probs, nucleus, penalties): a variant's first burst runs
+  eagerly (the warm-up), its second captures the graph and replays it,
+  every later one replays it, so a burst is one launch instead of
+  thousands. The graph replays the eager burst's kernels in its order, so
+  its tokens and log-probs are the eager burst's. A burst stays eager on
+  the CPU and on a tensor-parallel model (its collectives run on the
+  host); the speculative engines run their own loop, eagerly. A capture
+  that fails raises.
 - **Sampling** uses the port's counter-based stream (models/llama.py): a
   request's key is stream_key(seed), or stream_key(engine seed, rid), and
   the token at position p draws with (key, p), at admission and in the
@@ -47,6 +56,7 @@ which is the card unless the engine is built with `device="cpu"`.
 
 from __future__ import annotations
 
+import gc
 import itertools
 from collections import deque
 from dataclasses import dataclass, field
@@ -398,6 +408,19 @@ class ServingEngine:
         self.keys = torch.zeros(n, dtype=torch.int64, device=dev)
         # [n_slots, vocab] int32, allocated at the first penalized admission.
         self.counts = None
+        # A burst's one device-to-host copy, int32: [toks | emitted | the
+        # f32 log-probs' bits | active]. Like pos, last_tok, remaining and
+        # active, it is written in place, so a captured burst's graph reads
+        # and writes the same storage on every replay.
+        self._packed = torch.zeros(3 * self.steps_per_sync * n + n,
+                                   dtype=torch.int32, device=dev)
+        # One graph per burst variant on the card; collectives of a sharded
+        # model run on the host, so its bursts stay eager.
+        self._graphed = self.device.type == "cuda" and params.mesh is None
+        self._graphs: dict = {}
+        self._graph_pool = torch.cuda.graph_pool_handle() if self._graphed else None
+        self._warm: set = set()  # variants that have run an eager burst
+        self._burst_counts = {"graph_bursts": 0, "eager_bursts": 0}
         # The host's copy of `active`, refreshed by every burst's one copy.
         self._active_host = np.zeros(n, dtype=bool)
         self._slot_req: list[Request | None] = [None] * n
@@ -818,25 +841,70 @@ class ServingEngine:
         """`steps_per_sync` decode steps with no host sync, then one copy to
         the host. Returns numpy (toks [steps, b], emitted [steps, b] bool,
         lps [steps, b] f32)."""
-        (self.pos, self.last_tok, self.remaining, self.active, toks, emitted,
-         lps) = _burst(
+        self._launch_burst((with_logprobs, with_top_p, with_penalties))
+        packed = self._packed.to("cpu", copy=True).numpy()
+        s, b = self.steps_per_sync, self.n_slots
+        toks_h, emitted_h, lps_h = packed[:3 * s * b].reshape(3, s, b)
+        self._active_host = packed[3 * s * b:].astype(bool)
+        return toks_h, emitted_h.astype(bool), lps_h.view(np.float32)
+
+    def _launch_burst(self, variant: tuple) -> None:
+        """Put one burst of `variant` (with_logprobs, with_top_p,
+        with_penalties) on the device: its graph's replay, or the eager
+        burst. A replay makes no host sync; the capture, on the variant's
+        second burst, synchronizes once."""
+        graph = self._graphs.get(variant)
+        if graph is None and self._graphed and variant in self._warm:
+            graph = self._capture(variant)
+        if graph is None:
+            self._burst_in_place(*variant)
+            self._warm.add(variant)
+            self._burst_counts["eager_bursts"] += 1
+        else:
+            graph.replay()
+            self._burst_counts["graph_bursts"] += 1
+
+    def _capture(self, variant: tuple):
+        """Record `variant`'s burst as a CUDA graph (capture runs nothing);
+        every variant's graph draws on one memory pool, as no two replay
+        at once. `counts` exists before a penalized burst and is never
+        rebound, like every tensor the burst reads."""
+        graph = torch.cuda.CUDAGraph()
+        # No collection inside the capture: one that frees a dead engine's
+        # graph destroys it, which a capturing stream refuses, and that
+        # invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                self._burst_in_place(*variant)
+        finally:
+            if collecting:
+                gc.enable()
+        self._graphs[variant] = graph
+        return graph
+
+    def _burst_in_place(self, with_logprobs: bool, with_top_p: bool,
+                        with_penalties: bool) -> None:
+        """One `_burst` over the engine's state, its results copied into
+        the state tensors and the packed buffer."""
+        pos, tok, remaining, active, toks, emitted, lps = _burst(
             self._step_fn(), self.pos, self.last_tok, self.remaining,
             self.active, self.temp, self.keys, self.steps_per_sync,
             self.eos_id, with_logprobs, self.top_p if with_top_p else None,
             (self.presence, self.frequency, self.counts) if with_penalties
             else None)
-        # One device-to-host copy: tokens, flags and the f32 log-probs'
-        # bits as int32, and the active flags.
-        packed = torch.cat([
+        # Tokens, flags and the f32 log-probs' bits as int32, and the
+        # active flags: what the one device-to-host copy brings back.
+        torch.cat([
             toks.to(torch.int32).reshape(-1),
             emitted.to(torch.int32).reshape(-1),
             lps.view(torch.int32).reshape(-1),
-            self.active.to(torch.int32),
-        ]).cpu().numpy()
-        s, b = toks.shape
-        toks_h, emitted_h, lps_h = packed[:3 * s * b].reshape(3, s, b)
-        self._active_host = packed[3 * s * b:].astype(bool)
-        return toks_h, emitted_h.astype(bool), lps_h.view(np.float32)
+            active.to(torch.int32),
+        ], out=self._packed)
+        for state, new in ((self.pos, pos), (self.last_tok, tok),
+                           (self.remaining, remaining), (self.active, active)):
+            state.copy_(new)
 
     def take_logprobs(self, rid: int):
         """Pop the finished request's per-token model log-probs (aligned 1:1
@@ -868,13 +936,16 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Scheduler snapshot: queue depth, slot occupancy, finished-but-
-        uncollected results (the paged engine adds pool use)."""
+        uncollected results, bursts replayed from a graph and run eagerly,
+        and the variants captured (the paged engine adds pool use)."""
         return {
             "queued": len(self._queue),
             "active_slots": int(self._active_host.sum()),
             "occupied_slots": sum(r is not None for r in self._slot_req),
             "n_slots": self.n_slots,
             "results_pending": len(self._results),
+            **self._burst_counts,
+            "burst_graphs": len(self._graphs),
         }
 
     def run(self) -> dict[int, np.ndarray]:

@@ -22,7 +22,9 @@ independently (the slot bank's position vector carries ragged progress).
   on the other slots.
 - A burst runs `steps_per_sync` passes with no host sync; the acceptance
   masks, budgets and eos all stay on the device, and one copy brings the
-  pass-major [steps, b, gamma + 1] emission to the host.
+  pass-major [steps, b, gamma + 1] emission to the host. The passes run
+  eagerly on the card too: ServingEngine's burst graph is not captured
+  here (stats() counts every burst under `eager_bursts`).
 
 Writes past the end. The verify chunk and the draft steps write at
 positions pos..pos+gamma, up to gamma past a slot's last position (the
@@ -250,6 +252,7 @@ class _SpeculativeMixin:
         pass-major then within-pass, each slot's emission order."""
         # submit() refused everything that could set these flags.
         assert not (with_logprobs or with_top_p or with_penalties)
+        self._burst_counts["eager_bursts"] += 1
         (self.pos, self.last_tok, self.remaining, self.active, toks,
          emitted) = _spec_burst(
             self._verify_fn(), self.draft_params, self.dcache, self.dcfg,

@@ -13,6 +13,7 @@ stream is computed in int64 ops on each device; the logits differ by f32
 summation order only); quantized forwards within 1e-4.
 """
 
+import collections
 import copy
 
 import numpy as np
@@ -55,29 +56,52 @@ def _params(device):
     return cpu if device.type == "cpu" else copy.deepcopy(cpu).to(device)
 
 
-def _drive(cls, device, **kw):
+def _drive(cls, device, rounds=3, **kw):
+    """The mixed traffic, `rounds` times over one engine. Every burst
+    variant it uses (log-probs; nucleus with penalties; neither) runs at
+    least three bursts, so on the card each is captured and then replayed
+    at least twice. Returns (tokens, the log-prob request's log-probs,
+    engine, bursts per variant)."""
     eng = cls(_params(device), CFG, n_slots=2, max_len=96, steps_per_sync=3,
               prefill_chunk=16, eos_id=7, device=device, **kw)
+    variants = collections.Counter()
+    launch = eng._launch_burst
+
+    def counted(variant):
+        variants[variant] += 1
+        launch(variant)
+
+    eng._launch_burst = counted
     pid = eng.register_prefix(list(range(3, 24)))
-    rids = [eng.submit([5], 3), eng.submit(list(range(20, 50)), 5, logprobs=True),
-            eng.submit([88, 2], 17), eng.submit([3, 5], 7, prefix_id=pid),
-            eng.submit([], 6, prefix_id=pid),
-            eng.submit([4, 9, 2], 9, temperature=1.1, seed=3, top_p=0.9),
-            eng.submit([8], 9, presence_penalty=0.5, frequency_penalty=0.3)]
-    res = eng.run()
-    return [res[r] for r in rids], eng.take_logprobs(rids[1]), eng
+    toks, lps = [], []
+    for _ in range(rounds):
+        rids = [eng.submit([5], 3), eng.submit(list(range(20, 50)), 5, logprobs=True),
+                eng.submit([88, 2], 17), eng.submit([3, 5], 7, prefix_id=pid),
+                eng.submit([], 6, prefix_id=pid),
+                eng.submit([4, 9, 2], 9, temperature=1.1, seed=3, top_p=0.9),
+                eng.submit([8], 9, presence_penalty=0.5, frequency_penalty=0.3)]
+        res = eng.run()
+        toks += [res[r] for r in rids]
+        lps.append(eng.take_logprobs(rids[1]))
+    return toks, np.concatenate(lps), eng, variants
 
 
 @pytest.mark.parametrize("kv_quant", [False, True], ids=["kv", "int8_kv"])
 @pytest.mark.parametrize("cls", [ServingEngine, PagedServingEngine],
                          ids=["dense", "paged"])
 def test_engine_tokens_on_the_card_equal_the_cpu(cuda, cls, kv_quant):
+    """The card's bursts replay graphs; their tokens and log-probs are the
+    CPU engine's, whose bursts are eager."""
     kw = dict(kv_quant=kv_quant, **({"block_size": 8} if cls is PagedServingEngine else {}))
-    got, got_lp, eng = _drive(cls, cuda, **kw)
-    want, want_lp, _ = _drive(cls, torch.device("cpu"), **kw)
+    got, got_lp, eng, variants = _drive(cls, cuda, **kw)
+    want, want_lp, _, _ = _drive(cls, torch.device("cpu"), **kw)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_allclose(got_lp, want_lp, atol=1e-4, rtol=0)
+    assert min(variants.values()) >= 3
+    s = eng.stats()
+    assert s["burst_graphs"] == s["eager_bursts"] == len(variants)
+    assert s["graph_bursts"] == sum(variants.values()) - len(variants) > 0
     if cls is PagedServingEngine:
         eng.unregister_prefix(0)
         assert eng.free_blocks == eng.stats()["total_blocks"]
@@ -116,7 +140,8 @@ def test_sample_generate_on_the_card_equals_the_cpu(cuda):
 @pytest.mark.parametrize("cls", [ServingEngine, PagedServingEngine], ids=["dense", "paged"])
 def test_burst_makes_no_host_sync(cuda, cls):
     """A whole burst, every branch on (log-probs, nucleus, penalties, eos,
-    int8 KV), runs with host syncs made errors."""
+    int8 KV), runs with host syncs made errors: eagerly, and replayed from
+    the engine's graph of that variant before its one copy to the host."""
     kw = {"block_size": 8} if cls is PagedServingEngine else {}
     eng = cls(_params(cuda), CFG, n_slots=2, max_len=64, steps_per_sync=4,
               kv_quant=True, **kw)
@@ -134,6 +159,72 @@ def test_burst_makes_no_host_sync(cuda, cls):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out[4].shape == (4, 2) and int(counts.sum()) > 0
+    variant = (True, True, True)  # step() ran it eagerly: this captures it
+    with torch.inference_mode():
+        eng._launch_burst(variant)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            eng._launch_burst(variant)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    s = eng.stats()
+    assert s["graph_bursts"] == 2 and s["eager_bursts"] == s["burst_graphs"] == 1
+
+
+@pytest.mark.parametrize("cls", [ServingEngine, PagedServingEngine], ids=["dense", "paged"])
+def test_cancel_and_admit_between_replays(cuda, cls):
+    """A request cancelled, and a queued one admitted into its slot,
+    between two replays of the burst's graph: every request's tokens are
+    the CPU engine's under the same schedule."""
+    def drive(device):
+        kw = {"block_size": 8} if cls is PagedServingEngine else {}
+        eng = cls(_params(device), CFG, n_slots=2, max_len=64, steps_per_sync=3,
+                  device=device, **kw)
+        rids = [eng.submit([4, 9], 30), eng.submit([17, 2, 5], 30),
+                eng.submit([8, 8], 12, temperature=0.8, seed=5)]
+        eng.step()  # the variant's eager burst
+        eng.step()  # its capture, replayed
+        assert eng.cancel(rids[0])
+        eng.step()  # rids[2] takes slot 0; a replay
+        res = eng.run()
+        if cls is PagedServingEngine:
+            assert eng.free_blocks == eng.stats()["total_blocks"]
+        return [res[r] for r in rids], eng.stats()
+
+    got, s = drive(cuda)
+    want, _ = drive(torch.device("cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert 0 < len(got[0]) < 30 and [len(g) for g in got[1:]] == [30, 12]
+    assert s["eager_bursts"] == s["burst_graphs"] == 1 and s["graph_bursts"] >= 3
+
+
+MOE = LlamaConfig.tiny(n_layers=2, dim=64, hidden_dim=128, n_heads=4, n_kv_heads=2,
+                       vocab_size=97, max_seq_len=128, n_experts=4, dtype="bfloat16")
+
+
+def test_moe_bf16_graph_bursts_equal_eager_bursts(cuda):
+    """The benchmark's kind of model (bf16, dense MoE dispatch): bursts
+    replayed from graphs give the eager bursts' tokens and log-probs bit
+    for bit, as they launch the same kernels in the same order."""
+    cpu = init_params(MOE, torch.Generator().manual_seed(0), device="cpu")
+
+    def drive(graphed):
+        eng = ServingEngine(copy.deepcopy(cpu).to(cuda), MOE, n_slots=4, max_len=96,
+                            steps_per_sync=4, device=cuda)
+        eng._graphed = graphed
+        rids = [eng.submit(list(range(1 + i, 9 + 3 * i)), 20, logprobs=i % 2 == 0)
+                for i in range(6)]
+        res = eng.run()
+        return [res[r] for r in rids], [eng.take_logprobs(r) for r in rids[::2]], eng.stats()
+
+    got, got_lp, s = drive(True)
+    want, want_lp, eager = drive(False)
+    for g, w in zip(got + got_lp, want + want_lp):
+        np.testing.assert_array_equal(g, w)
+    assert s["graph_bursts"] > 0 and eager["graph_bursts"] == 0
 
 
 DRAFT = LlamaConfig.tiny(n_layers=1, dim=32, hidden_dim=64, n_heads=2, n_kv_heads=2,
@@ -172,6 +263,7 @@ def test_spec_end_of_cache_writes_on_the_card(cuda, cls):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert [len(g) for g in got] == [12, 30, 29]
+    assert eng.stats()["graph_bursts"] == 0  # the speculative loop stays eager
     if cls is PagedSpeculativeServingEngine:
         assert eng.free_blocks == eng.stats()["total_blocks"]
 
@@ -215,8 +307,11 @@ def test_multi_lora_tokens_on_the_card_equal_the_cpu(cuda):
         rids += [eng.submit([1, 2], 6, prefix_id=pid, adapter="b"),
                  eng.submit([44, 3], 6, adapter="a", temperature=1.0, seed=2)]
         res = eng.run()
-        return [res[r] for r in rids]
+        return [res[r] for r in rids], eng.stats()["graph_bursts"]
 
     for quant in (False, True):
-        for g, w in zip(drive(cuda, quant), drive(torch.device("cpu"), quant)):
+        got, replays = drive(cuda, quant)
+        want, _ = drive(torch.device("cpu"), quant)
+        for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+        assert replays > 0  # the adapter ids are read in place by the graph

@@ -15,6 +15,8 @@ heads, vocab 97, f32) with JAX's seed-0 weights converted to the port.
 - Everything else (cancel, callbacks, stats, penalties, buckets, errors)
   as the JAX tests check it, with the port's greedy_generate (held to
   JAX's in test_torch_llama.py) as the reference.
+- The burst's state stays in place and a CPU burst is eager (the card's
+  graph replays are held to the CPU in test_torch_cuda_serving.py).
 """
 
 import numpy as np
@@ -39,6 +41,10 @@ from bee_code_interpreter_fs_tpu_torch.models.paged import PagedServingEngine  #
 from bee_code_interpreter_fs_tpu_torch.models.serving import (  # noqa: E402
     ServingEngine,
     _sample_next,
+)
+from bee_code_interpreter_fs_tpu_torch.models.spec_serving import (  # noqa: E402
+    PagedSpeculativeServingEngine,
+    SpeculativeServingEngine,
 )
 
 FIXTURE = dict(n_layers=2, dim=64, hidden_dim=128, n_heads=4, n_kv_heads=2,
@@ -535,3 +541,47 @@ def test_prefix_lifecycle_and_bucket_routes(tiny):
     prompt = [t % 97 for t in range(1, 101)]
     rid = eng.submit(prompt, 6)
     np.testing.assert_array_equal(eng.run()[rid], _reference(model, tcfg, prompt, 6))
+
+
+STATE = ("pos", "last_tok", "remaining", "active")
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_burst_state_stays_in_place(tiny, kind):
+    """_run_burst copies each burst's results into the engine's state, so
+    pos, last_tok, remaining and active stay the same tensors over the
+    same storage (what a captured graph reads and writes); a CPU engine
+    runs every burst eagerly and captures nothing."""
+    _, _, model, tcfg, _ = tiny
+    eng = _port_engine(tiny, kind, n_slots=2, max_len=64, steps_per_sync=3)
+    before = {name: (getattr(eng, name), getattr(eng, name).data_ptr())
+              for name in STATE}
+    packed = eng._packed.data_ptr()
+    rids = [eng.submit([4, 9], 10), eng.submit([17] * 5, 7, logprobs=True),
+            eng.submit([2], 12)]
+    res = eng.run()
+    for name, (tensor, ptr) in before.items():
+        assert getattr(eng, name) is tensor and tensor.data_ptr() == ptr, name
+    assert eng._packed.data_ptr() == packed
+    for rid, (p, m) in zip(rids, (([4, 9], 10), ([17] * 5, 7), ([2], 12))):
+        np.testing.assert_array_equal(res[rid], _reference(model, tcfg, p, m))
+    s = eng.stats()
+    assert s["eager_bursts"] >= 4
+    assert s["graph_bursts"] == 0 and s["burst_graphs"] == 0
+
+
+@pytest.mark.parametrize("cls", [SpeculativeServingEngine, PagedSpeculativeServingEngine],
+                         ids=["dense", "paged"])
+def test_speculative_bursts_stay_eager(tiny, cls):
+    """The speculative engines run their own burst loop: no graph, every
+    burst counted eager. The target is its own draft, so every proposal is
+    accepted and the tokens are greedy_generate's."""
+    _, _, model, tcfg, _ = tiny
+    kw = {"block_size": 8} if cls is PagedSpeculativeServingEngine else {}
+    eng = cls(model, tcfg, draft_params=model, draft_cfg=tcfg, gamma=2, n_slots=2,
+              max_len=64, steps_per_sync=2, device="cpu", **kw)
+    rid = eng.submit([4, 9], 12)
+    np.testing.assert_array_equal(eng.run()[rid], _reference(model, tcfg, [4, 9], 12))
+    s = eng.stats()
+    assert s["eager_bursts"] >= 1
+    assert s["graph_bursts"] == 0 and s["burst_graphs"] == 0
