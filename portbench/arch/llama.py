@@ -1,10 +1,7 @@
-"""The system under test: the port's model built from the benchmark's
-seeded weights.
-
-This module imports the port (``bee_code_interpreter_fs_tpu_torch``) and
-nothing of the JAX package. The weights are made by ``weights.py`` and
-loaded into the port's ``Llama`` as views of the per-layer buffers, through
-the module's own ``matmul_weight`` hook, so no leaf is allocated twice.
+"""The Llama architecture: Mistral-7B and Mixtral-8x7B (a dense or a
+top-k MoE MLP, GQA, RoPE, an optional sliding window) as the port's
+``models.llama`` runs them. The weight layout and the plain model are
+``reference/llama_ref.py``'s; the FLOP counts are ``roofline/model.py``'s.
 """
 
 from __future__ import annotations
@@ -14,10 +11,17 @@ import dataclasses
 import torch
 from torch import nn
 
-from pb_core import weights as W
+from reference.llama_ref import (Reference, embed_buffer, head_buffer,  # noqa: F401
+                                 layer_buffer, shapes_of)
+from roofline.model import decode_flops, prefill_flops, score_flops  # noqa: F401
+
+# The CPU tests' size: a few lanes and two layers.
+TINY = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, vocab_size=256)
+TINY_WINDOW = 16
 
 
-def llama_config(conf: dict, **overrides):
+def port_config(conf: dict, **overrides):
     """The port's LlamaConfig for a configuration file (published keys,
     plus its "run" block), with `overrides` applied last."""
     from bee_code_interpreter_fs_tpu_torch.models import LlamaConfig
@@ -44,11 +48,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_params(conf: dict, seed: int, device, cfg=None):
-    """The port's Llama for `conf` with the run's seeded weights."""
+    """The port's Llama for `conf` with the run's seeded weights, loaded
+    as views of the per-layer buffers through the module's own
+    ``matmul_weight`` hook, so no leaf is allocated twice."""
     from bee_code_interpreter_fs_tpu_torch.models import Llama
 
-    cfg = cfg or llama_config(conf)
-    shapes = W.shapes_of(conf)
+    cfg = cfg or port_config(conf)
+    shapes = shapes_of(conf)
     dtype = _DTYPES[cfg.dtype]
     names = [n for n, _, _ in shapes.layer() if n != "router"]
     state = {"layer": 0, "leaf": 0, "bufs": []}
@@ -56,11 +62,10 @@ def build_params(conf: dict, seed: int, device, cfg=None):
     def matmul_weight(n_in, n_out, dt, dev, experts: int = 0):
         layer = state["layer"]
         if layer == cfg.n_layers:  # the head comes after every block
-            head = W.head_buffer(shapes, cfg.vocab_size, cfg.n_layers, seed,
-                                 dtype, dev)
+            head = head_buffer(shapes, cfg.vocab_size, cfg.n_layers, seed, dtype, dev)
             return nn.Parameter(head, requires_grad=False)
         if state["leaf"] == 0:
-            state["bufs"].append(W.layer_buffer(shapes, seed, layer, dtype, dev))
+            state["bufs"].append(layer_buffer(shapes, seed, layer, dtype, dev))
         name = names[state["leaf"]]
         leaf = state["bufs"][layer][name]
         want = ((experts,) if experts else ()) + (n_in, n_out)
@@ -77,8 +82,8 @@ def build_params(conf: dict, seed: int, device, cfg=None):
         model = Llama(cfg, device, matmul_weight=matmul_weight)
         if state["layer"] != cfg.n_layers:
             raise ValueError("the port built fewer blocks than the config has")
-        model.embed.data = W.embed_buffer(shapes, cfg.vocab_size, cfg.n_layers,
-                                          seed, dtype, model.device)
+        model.embed.data = embed_buffer(shapes, cfg.vocab_size, cfg.n_layers, seed,
+                                        dtype, model.device)
         for i, blk in enumerate(model.layers):
             blk.attn_norm.fill_(1.0)
             blk.mlp_norm.fill_(1.0)
@@ -88,3 +93,25 @@ def build_params(conf: dict, seed: int, device, cfg=None):
                 blk.router.data = state["bufs"][i]["router"]
         model.final_norm.fill_(1.0)
     return model
+
+
+def forward(params, tokens, cfg):
+    """``models.llama.forward``: K1 does the attention under
+    ``attn_impl="flash"``, once per layer."""
+    from bee_code_interpreter_fs_tpu_torch.models import llama
+
+    return llama.forward(params, tokens, cfg)
+
+
+def k1_launches(cfg, t: int) -> list:
+    """One K1 launch per layer over the whole document."""
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    return [(1, t, cfg.n_heads, cfg.head_dim, elem, cfg.sliding_window, cfg.attention_sinks)
+            for _ in range(cfg.n_layers)]
+
+
+def tiny(conf: dict) -> dict:
+    out = dict(TINY)
+    if conf.get("sliding_window"):
+        out["sliding_window"] = TINY_WINDOW
+    return out

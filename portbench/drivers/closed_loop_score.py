@@ -1,5 +1,6 @@
-"""Closed loop, one client: score documents with the port's
-``models.llama.forward`` (K1 does the attention under ``attn_impl="flash"``).
+"""Closed loop, one client: score documents with the port's forward
+(the architecture module's ``forward``; for llama ``models.llama.forward``,
+K1 doing the attention under ``attn_impl="flash"``).
 
 Each step is one document (b = 1); the output is the log-probs of the
 document's own next tokens. The next forward is dispatched before the
@@ -17,9 +18,6 @@ import gc
 import time
 
 from pb_core import check, traffic
-from pb_core.program import build_params
-from reference.llama_ref import Reference
-from roofline import model as model_flops
 
 
 def _score(torch, forward, params, cfg, tokens):
@@ -37,19 +35,18 @@ def _score(torch, forward, params, cfg, tokens):
 
 
 def run(ctx) -> dict:
-    torch, dev, mix, conf = ctx.torch, ctx.device, ctx.mix, ctx.conf
-    from bee_code_interpreter_fs_tpu_torch.models import llama
+    torch, dev, mix, conf, arch = ctx.torch, ctx.device, ctx.mix, ctx.conf, ctx.arch
     from bee_code_interpreter_fs_tpu_torch.ops.flash_attention import flash_attention
 
     cfg = ctx.cfg
-    params = build_params(conf, ctx.seed, dev, cfg)
+    params = arch.build_params(conf, ctx.seed, dev, cfg)
     params = ctx.program_variant(params)
     n_docs = int(mix["documents_per_run"])
     docs = traffic.documents(mix, ctx.seed, n_docs, cfg.vocab_size)
     # Every document on the device before the window: an upload from
     # pageable memory would synchronize the stream.
     on_dev = [torch.as_tensor(d, device=dev) for d in docs]
-    forward = llama.forward
+    forward = arch.forward
 
     def wait(ev):
         if ev is not None:
@@ -122,19 +119,18 @@ def run(ctx) -> dict:
         "attempted": n_done,
         "failed": 0,
         "scored_tokens": sum(t - 1 for t in lengths),
-        "model_flops": sum(model_flops.score_flops(conf, t) for t in lengths),
+        "model_flops": sum(arch.score_flops(conf, t) for t in lengths),
         "k1_launches_window": k1_window,
     }
     if slice_docs:
-        rec["k1_slice_launches"] = [
-            (1, docs[j].size, cfg.n_heads, cfg.head_dim, 2 if cfg.dtype == "bfloat16" else 4,
-             cfg.sliding_window, cfg.attention_sinks)
-            for j in slice_docs for _ in range(cfg.n_layers)]
+        rec["k1_slice_launches"] = [shape for j in slice_docs
+                                    for shape in arch.k1_launches(cfg, docs[j].size)]
 
     picks = check.sample(lengths, int(mix["check"]["documents"]), ctx.seed, lambda t: t)
-    ref = Reference(conf, ctx.seed, dev)
+    ref = arch.Reference(conf, ctx.seed, dev)
     ctx.reference_started()
-    control = (Reference(conf, ctx.seed, dev, matmul_fp8=True) if ctx.fp8_control else None)
+    control = (arch.Reference(conf, ctx.seed, dev, matmul_fp8=True) if ctx.fp8_control
+               else None)
     numbers = check.score_gaps(ref, [docs[j] for j in picks], [done_lp[j] for j in picks],
                                control)
     numbers["documents_compared"] = len(picks)

@@ -1,6 +1,6 @@
 """The comparisons that decide ``correct``: what the timed path produced,
-held to the plain reference (``reference/llama_ref.py``) once the window
-has closed and the program's state is freed.
+held to the plain reference (the architecture module's ``Reference``)
+once the window has closed and the program's state is freed.
 
 - Scoring: each sampled document's per-token log-probs against the
   reference's; the number compared is the mean squared gap, the widest
@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from reference.llama_ref import ROW_BLOCK, Reference
-
+# Rows of logits the reference computes at once.
+ROW_BLOCK = 2048
 
 # A token whose reference routing comes within this of a tie (between
 # the k-th and the next router logit) in some layer is left out of the
@@ -41,7 +41,7 @@ def sample(items: list, k: int, seed: int, size) -> list:
     return [longest] + sorted(rest[i] for i in pick)
 
 
-def _ref_logprobs(ref: Reference, docs: list, hidden: list, head) -> list:
+def _ref_logprobs(ref, docs: list, hidden: list, head) -> list:
     """Each document's next-token log-probs under `ref`, on the device."""
     out = []
     for doc, h in zip(docs, hidden):
@@ -61,8 +61,7 @@ def _lp_numbers(want: list, got: list) -> dict:
             "logprob_gap_mean": float(gap.mean()), "tokens_compared": gap.numel()}
 
 
-def score_gaps(ref: Reference, docs: list, logprobs: list,
-               control: Reference | None = None) -> dict:
+def score_gaps(ref, docs: list, logprobs: list, control=None) -> dict:
     """docs: token arrays; logprobs: the program's log-probs of each
     document's next tokens (len - 1 each). With `control` (the reference
     computing its matmuls in fp8), its log-probs give
@@ -78,7 +77,7 @@ def score_gaps(ref: Reference, docs: list, logprobs: list,
     return out
 
 
-def served_gaps(ref: Reference, served: list, control: Reference | None = None) -> dict:
+def served_gaps(ref, served: list, control=None) -> dict:
     """served: dicts of a finished greedy request's prompt and served
     tokens. Each token's gap is how far its reference logit lies below the
     reference's best at that position. The number is the mean gap over the

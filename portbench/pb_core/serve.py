@@ -20,9 +20,6 @@ import time
 import numpy as np
 
 from pb_core import check, traffic
-from pb_core.program import build_params
-from reference.llama_ref import Reference
-from roofline import model as model_flops
 
 
 class Req:
@@ -54,7 +51,8 @@ class EngineRun:
         self.ctx = ctx
         self.torch = ctx.torch
         mix, eng_kw = ctx.mix, dict(ctx.mix["engine"])
-        params = ctx.program_variant(build_params(ctx.conf, ctx.seed, ctx.device, ctx.cfg))
+        params = ctx.program_variant(ctx.arch.build_params(ctx.conf, ctx.seed, ctx.device,
+                                                           ctx.cfg))
         self.engine = ServingEngine(params, ctx.cfg, device=ctx.device,
                                     seed=ctx.seed, **eng_kw)
         self.n_slots = self.engine.n_slots
@@ -139,7 +137,7 @@ class EngineRun:
 
     def window_record(self, t0: float, t1: float) -> dict:
         """Counts and samples of the window [t0, t1] (both step ends)."""
-        conf = self.ctx.conf
+        conf, arch = self.ctx.conf, self.ctx.arch
         counted = [r for r in self.reqs if r.counted]
         out_tokens, flops = 0, 0.0
         for r in self.reqs:
@@ -148,10 +146,10 @@ class EngineRun:
                 if t0 < at <= t1:
                     out_tokens += k
                     for j in range(max(j0, 1), j0 + k):
-                        flops += model_flops.decode_flops(conf, plen + j)
+                        flops += arch.decode_flops(conf, plen + j)
         for s, e, n in self.admits:
             if t0 < e <= t1:
-                flops += model_flops.prefill_flops(conf, n)
+                flops += arch.prefill_flops(conf, n)
         tpot = [(r.last_at - r.first_at) * 1e3 / (r.n - 1)
                 for r in counted if r.done and r.n > 1]
         in_win = lambda e: t0 < e <= t1  # noqa: E731
@@ -194,9 +192,10 @@ class EngineRun:
         if ctx.device.type == "cuda":
             torch.cuda.empty_cache()
         ctx.reference_started()
-        control = (Reference(ctx.conf, ctx.seed, ctx.device, matmul_fp8=True)
+        ref_cls = ctx.arch.Reference
+        control = (ref_cls(ctx.conf, ctx.seed, ctx.device, matmul_fp8=True)
                    if ctx.fp8_control else None)
-        numbers = check.served_gaps(Reference(ctx.conf, ctx.seed, ctx.device), pairs, control)
+        numbers = check.served_gaps(ref_cls(ctx.conf, ctx.seed, ctx.device), pairs, control)
         numbers["requests_compared"] = len(pairs)
         rec["numbers"] = numbers
         return rec

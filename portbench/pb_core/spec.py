@@ -1,11 +1,17 @@
 """``BENCHMARK.json`` and the data files it names, found by name:
 
-- ``configs/<config>.json`` (the path the configuration entry gives);
+- ``configs/<config>.json`` (the path the configuration entry gives),
+  whose ``"arch"`` key names its architecture module, ``arch/<arch>.py``
+  (the contract is in ``arch/__init__.py``);
 - ``traffic/<mix>.json``: the mix's generator parameters, its driver
   (``drivers/<driver>.py``) and the engine settings of its cells;
 - ``limits/<cell>.json``: the numbers the cell's check compares, each
   with its limit and the readings it was set from;
 - ``metrics/<metric>.py``: one reader per metric.
+
+``arch`` and ``limits`` take `look_in`: directories of the same layout
+searched before the benchmark's own, so that a test can bring an
+architecture and its cells without writing into the benchmark.
 """
 
 from __future__ import annotations
@@ -41,12 +47,38 @@ def mix(name: str) -> dict:
     return _json(BENCH_DIR / "traffic" / f"{name}.json")
 
 
-def limits(cell: str) -> dict:
-    return _json(BENCH_DIR / "limits" / f"{cell}.json")["numbers"]
+def _find(kind: str, file: str, look_in=()) -> Path:
+    for d in (*look_in, BENCH_DIR):
+        path = Path(d) / kind / file
+        if path.exists():
+            return path
+    return BENCH_DIR / kind / file
 
 
-def _load(kind: str, name: str):
-    path = BENCH_DIR / kind / f"{name}.py"
+def limits(cell: str, look_in=()) -> dict:
+    return _json(_find("limits", f"{cell}.json", look_in))["numbers"]
+
+
+# What an architecture module provides (arch/__init__.py).
+ARCH_CONTRACT = ("port_config", "build_params", "forward", "Reference", "score_flops",
+                 "prefill_flops", "decode_flops", "k1_launches", "tiny")
+
+
+def arch(conf: dict, look_in=()):
+    """The architecture module the configuration file names by its
+    ``"arch"`` key."""
+    if "arch" not in conf:
+        raise SystemExit(f"portbench: configuration {conf.get('name')!r} has no \"arch\" "
+                         "key: name its module in portbench/arch/")
+    module = _load("arch", conf["arch"], look_in)
+    missing = [n for n in ARCH_CONTRACT if not hasattr(module, n)]
+    if missing:
+        raise SystemExit(f"portbench: arch/{conf['arch']}.py lacks {', '.join(missing)}")
+    return module
+
+
+def _load(kind: str, name: str, look_in=()):
+    path = _find(kind, f"{name}.py", look_in)
     spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)

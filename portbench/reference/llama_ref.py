@@ -14,15 +14,18 @@ the published equations.
 
 Everything runs in float32 with TF32 off, layer by layer over all the
 sequences at once, attention in blocks of queries, so that it fits beside
-nothing else on the card. Weights come from ``pb_core.weights``, drawn
-again from the run's seed: the reference takes nothing the program made.
-It imports neither JAX nor anything of the port.
+nothing else on the card. The weight layout is stated here (``Shapes``):
+``arch/llama.py`` loads the same draws into the port's model, and the
+reference draws them again from the run's seed (``pb_core.weights``), so
+it takes nothing the program made. It imports neither JAX nor anything
+of the port.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -39,6 +42,62 @@ def fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
     that the check's control computes its matmuls in."""
     scale = x.abs().amax(dim=dim, keepdim=True).clamp(min=1e-12) / FP8_MAX
     return (x / scale).to(torch.float8_e4m3fn).float() * scale
+
+
+@dataclass(frozen=True)
+class Shapes:
+    """The matmul leaves of one layer, in buffer order, as [in, out]
+    (experts leading for the MoE MLP), with each one's fan-in."""
+
+    dim: int
+    hidden: int
+    n_heads: int
+    n_kv_heads: int
+    n_experts: int
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def layer(self) -> list[tuple[str, tuple[int, ...], int]]:
+        d, hd = self.dim, self.head_dim
+        q, kv = self.n_heads * hd, self.n_kv_heads * hd
+        lead = (self.n_experts,) if self.n_experts else ()
+        leaves = [("wq", (d, q), d), ("wk", (d, kv), d), ("wv", (d, kv), d),
+                  ("wo", (q, d), q)]
+        if self.n_experts:
+            leaves.append(("router", (d, self.n_experts), d))
+        leaves += [("w_gate", lead + (d, self.hidden), d),
+                   ("w_up", lead + (d, self.hidden), d),
+                   ("w_down", lead + (self.hidden, d), self.hidden)]
+        return leaves
+
+
+def shapes_of(conf: dict) -> Shapes:
+    """Shapes from a configuration file's published keys."""
+    return Shapes(conf["hidden_size"], conf["intermediate_size"],
+                  conf["num_attention_heads"], conf["num_key_value_heads"],
+                  int(conf.get("num_local_experts") or 0))
+
+
+def layer_buffer(shapes: Shapes, seed: int, layer: int, dtype, device) -> dict:
+    """Layer `layer`'s matmul weights (stream `layer`): {name: view of one
+    flat buffer}."""
+    return W.scaled_leaves(shapes.layer(), seed, layer, dtype, device)
+
+
+def head_buffer(shapes: Shapes, vocab: int, n_layers: int, seed: int, dtype,
+                device) -> torch.Tensor:
+    """The output head [dim, vocab] (stream n_layers), scaled by dim**-0.5."""
+    buf = W.filled(shapes.dim * vocab, seed, n_layers, dtype, device)
+    return buf.mul_(shapes.dim ** -0.5).view(shapes.dim, vocab)
+
+
+def embed_buffer(shapes: Shapes, vocab: int, n_layers: int, seed: int, dtype,
+                 device) -> torch.Tensor:
+    """The embedding [vocab, dim] (stream n_layers + 1), unit normal."""
+    return W.filled(vocab * shapes.dim, seed, n_layers + 1, dtype, device).view(
+        vocab, shapes.dim)
 
 
 @contextlib.contextmanager
@@ -64,7 +123,7 @@ class Reference:
         self.conf = conf
         self.seed = int(seed)
         self.device = torch.device(device)
-        self.shapes = W.shapes_of(conf)
+        self.shapes = shapes_of(conf)
         self.n_layers = int(conf["num_hidden_layers"])
         self.vocab = int(conf["vocab_size"])
         self.eps = float(conf["rms_norm_eps"])
@@ -84,15 +143,15 @@ class Reference:
     # -------------------------------------------------------------- weights
 
     def layer_weights(self, i: int) -> dict:
-        bufs = W.layer_buffer(self.shapes, self.seed, i, self.weight_dtype, self.device)
+        bufs = layer_buffer(self.shapes, self.seed, i, self.weight_dtype, self.device)
         return {k: v.float() for k, v in bufs.items()}
 
     def head(self) -> torch.Tensor:
-        return W.head_buffer(self.shapes, self.vocab, self.n_layers, self.seed,
+        return head_buffer(self.shapes, self.vocab, self.n_layers, self.seed,
                              self.weight_dtype, self.device).float()
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        table = W.embed_buffer(self.shapes, self.vocab, self.n_layers, self.seed,
+        table = embed_buffer(self.shapes, self.vocab, self.n_layers, self.seed,
                                self.weight_dtype, self.device)
         return table[tokens.to(self.device)].float()
 

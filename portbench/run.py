@@ -42,16 +42,17 @@ from pb_core.trace import Tracer  # noqa: E402
 
 
 class Context:
-    """What a driver gets: the cell's data, the device, the clock marks."""
+    """What a driver gets: the cell's data, its architecture module
+    (``arch/<arch>.py``: the port's model, forward, reference, FLOP counts
+    and K1 shapes), the device, the clock marks."""
 
     def __init__(self, torch, device, bench, cell, conf, seed, seconds, trace,
                  variant=None, conf_overrides=None, mix_overrides=None,
-                 fp8_control=False):
-        from pb_core.program import llama_config
-
+                 fp8_control=False, look_in=()):
         self.torch, self.device, self.cell = torch, device, cell
         self.conf = dict(conf, **(conf_overrides or {}))
-        self.cfg = llama_config(self.conf)
+        self.arch = spec.arch(self.conf, look_in)
+        self.cfg = self.arch.port_config(self.conf)
         self.mix = dict(spec.mix(cell["traffic"]), **(mix_overrides or {}))
         self.seed, self.seconds = int(seed), float(seconds)
         self.tracer = Tracer(torch, bool(trace))
@@ -98,17 +99,19 @@ def card_line() -> str:
 
 
 def run_cell(bench, cell_name, seed, seconds, trace, *, device=None, variant=None,
-             conf_overrides=None, mix_overrides=None, fp8_control=False, torch=None):
+             conf_overrides=None, mix_overrides=None, fp8_control=False, torch=None,
+             look_in=()):
     """Run the cell once; returns (result, check lines, other numbers, the
-    driver's record). `device`, `conf_overrides` and `mix_overrides` serve
-    the CPU tests, which run the harness at a tiny size without a card."""
+    driver's record). `device`, `conf_overrides`, `mix_overrides` and
+    `look_in` (more directories for ``arch/`` and ``limits/``) serve the
+    CPU tests, which run the harness at a tiny size without a card."""
     if torch is None:
         import torch
     cell = spec.by_name(bench["workloads"], cell_name, "workload")
     conf = spec.config(bench, cell["config"])
     dev = torch.device(device or "cuda")
     ctx = Context(torch, dev, bench, cell, conf, seed, seconds, trace, variant,
-                  conf_overrides, mix_overrides, fp8_control)
+                  conf_overrides, mix_overrides, fp8_control, look_in)
     rec = spec.driver(ctx.mix["driver"]).run(ctx)
     rec["setup_s"] = ctx.setup_s
     ref_s = time.perf_counter() - ctx.reference_at if ctx.reference_at else None
@@ -118,7 +121,7 @@ def run_cell(bench, cell_name, seed, seconds, trace, *, device=None, variant=Non
         value = spec.reader(m["name"]).read(rec, ctx)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    ok, shown = check.verdict(rec["numbers"], spec.limits(cell_name))
+    ok, shown = check.verdict(rec["numbers"], spec.limits(cell_name, look_in))
     answers_ok = rec["failed"] == 0 and rec["attempted"] > 0
     device_info = {
         "platform": "gpu" if dev.type == "cuda" else dev.type,

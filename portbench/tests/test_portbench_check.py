@@ -13,13 +13,16 @@ from __future__ import annotations
 import pytest
 import torch
 
-from tiny import run_tiny
+from tiny import CELLS, run_tiny
+
+from pb_core import spec  # noqa: E402
 
 SEED = 2**31 + 4242
-SERVE = ("mixtral-8x7b.serve-batch",)
+SERVE = tuple(c["name"] for c in spec.load_benchmark()["workloads"]
+              if spec.mix(c["traffic"])["driver"] == "closed_loop_serve")
 
 
-@pytest.mark.parametrize("cell", ["mistral-7b.score-long", *SERVE])
+@pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell):
     result, _, _, _ = run_tiny(cell, SEED)
     assert result["correct"], result["checks"]
@@ -86,7 +89,7 @@ def test_serve_fault_is_refused(monkeypatch, cell, fault):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["mistral-7b.score-long", *SERVE])
+@pytest.mark.parametrize("cell", CELLS)
 def test_fp8_control_is_refused_on_the_card(cell):
     """At the cell's own size: the reference computing its matmuls in fp8,
     put in the program's place over the same prompts and tokens, reads
@@ -95,7 +98,6 @@ def test_fp8_control_is_refused_on_the_card(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the control runs at the cell's own size")
     import run
-    from pb_core import spec
 
     limits = spec.limits(cell)
     _, _, _, rec = run.run_cell(spec.load_benchmark(), cell, SEED, 6.0, False,
@@ -112,7 +114,7 @@ def test_int8_weights_are_refused_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the int8 path runs at the cell's own size")
     import run
-    from pb_core import check, spec
+    from pb_core import check
 
     cell = "mistral-7b.score-long"
     _, _, _, rec = run.run_cell(spec.load_benchmark(), cell, SEED, 6.0, False,

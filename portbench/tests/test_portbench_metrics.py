@@ -8,7 +8,7 @@ import types
 
 import pytest
 
-from tiny import BENCH  # noqa: F401  (puts the benchmark on sys.path)
+from tiny import tiny_mix_path  # (also puts the benchmark on sys.path)
 
 from pb_core import spec, stats, trace  # noqa: E402
 from roofline import flash_attention_k1 as k1  # noqa: E402
@@ -147,10 +147,15 @@ def test_every_metric_has_a_reader_and_every_cell_its_files():
     bench = spec.load_benchmark()
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert hasattr(spec.reader(m["name"]), "read"), m["name"]
+    for c in bench["configs"]:
+        module = spec.arch(spec.config(bench, c["name"]))
+        for name in spec.ARCH_CONTRACT:
+            assert callable(getattr(module, name)), (c["name"], name)
     for cell in bench["workloads"]:
         mix = spec.mix(cell["traffic"])
         assert hasattr(spec.driver(mix["driver"]), "run")
         assert spec.limits(cell["name"])
+        assert tiny_mix_path(cell["name"]).exists(), cell["name"]
         names = {m["name"] for m in spec.metrics_of(bench, cell["name"], False)}
         assert "setup_s" in names and len(names) >= 2
         assert spec.metrics_of(bench, cell["name"], True)

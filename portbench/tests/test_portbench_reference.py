@@ -1,6 +1,7 @@
 """The plain reference (reference/llama_ref.py) held to the port on the
-CPU at tiny sizes, with the same seeded weights: Mistral's sliding window
-(the port's plain attention and K1's plain version) and Mixtral's top-2
+CPU at tiny sizes, with the same seeded weights, both reached through the
+llama architecture module (arch/llama.py): Mistral's sliding window (the
+port's plain attention and K1's plain version) and Mixtral's top-2
 routing. Logits are compared, in float32."""
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ import torch
 
 from tiny import conf_overrides  # noqa: F401  (puts the benchmark on sys.path)
 
-from pb_core import program, spec  # noqa: E402
-from reference.llama_ref import Reference  # noqa: E402
+from pb_core import spec  # noqa: E402
+
+LLAMA = spec.arch({"arch": "llama"})
 
 SEED = 2**31 + 977
 
@@ -28,16 +30,14 @@ def _conf(config: str, **extra) -> dict:
 
 
 def _port_logits(conf, tokens, attn_impl):
-    cfg = program.llama_config(conf, dtype="float32", attn_impl=attn_impl)
-    params = program.build_params(conf, SEED, "cpu", cfg)
-    from bee_code_interpreter_fs_tpu_torch.models import forward
-
+    cfg = LLAMA.port_config(conf, dtype="float32", attn_impl=attn_impl)
+    params = LLAMA.build_params(conf, SEED, "cpu", cfg)
     with torch.no_grad():
-        return forward(params, tokens[None], cfg)[0]
+        return LLAMA.forward(params, tokens[None], cfg)[0]
 
 
 def _ref_logits(conf, tokens):
-    ref = Reference(conf, SEED, "cpu", weight_dtype=torch.float32)
+    ref = LLAMA.Reference(conf, SEED, "cpu", weight_dtype=torch.float32)
     h = ref.final_hidden([tokens])[0]
     return ref.logits_rows(h, torch.arange(tokens.numel()))
 
@@ -67,7 +67,7 @@ def test_mixtral_top2_matches_port():
 def test_mixtral_routing_is_top2_renormalized():
     """One expert's output alone differs: routing and its weights matter."""
     conf = _conf("mixtral-8x7b")
-    ref = Reference(conf, SEED, "cpu", weight_dtype=torch.float32)
+    ref = LLAMA.Reference(conf, SEED, "cpu", weight_dtype=torch.float32)
     w = ref.layer_weights(0)
     h = torch.randn(16, conf["hidden_size"], generator=torch.Generator().manual_seed(3))
     out = ref._mlp(h, w)
@@ -87,15 +87,15 @@ def test_weights_are_the_seeds_and_shared():
     """The program's module holds exactly the reference's tensors, and
     another seed gives other weights."""
     conf = _conf("mixtral-8x7b")
-    cfg = program.llama_config(conf, dtype="float32")
-    params = program.build_params(conf, SEED, "cpu", cfg)
-    ref = Reference(conf, SEED, "cpu", weight_dtype=torch.float32)
+    cfg = LLAMA.port_config(conf, dtype="float32")
+    params = LLAMA.build_params(conf, SEED, "cpu", cfg)
+    ref = LLAMA.Reference(conf, SEED, "cpu", weight_dtype=torch.float32)
     for i, blk in enumerate(params.layers):
         w = ref.layer_weights(i)
         for name in ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down"):
             assert torch.equal(getattr(blk, name), w[name]), (i, name)
     assert torch.equal(params.lm_head, ref.head())
-    other = Reference(conf, SEED + 1, "cpu", weight_dtype=torch.float32)
+    other = LLAMA.Reference(conf, SEED + 1, "cpu", weight_dtype=torch.float32)
     assert not torch.equal(other.layer_weights(0)["wq"], ref.layer_weights(0)["wq"])
     assert dataclasses.asdict(cfg)["n_experts"] == 8
 
