@@ -28,9 +28,21 @@ published keys, its ``"run"`` block, and any overrides a test applies):
   ``decode_flops(conf, context)``: the model FLOPs a t-token document
   scored, an n-token prompt prefilled and one token decoded at `context`
   visible keys need (``mfu.score``, ``mfu.serve``).
-- ``k1_launches(cfg, t)``: the shapes ``(b, t, heads, head_dim,
-  element bytes, window, sinks)`` of the K1 launches one scored t-token
-  document makes, in order (``k1_roofline``).
 - ``tiny(conf)``: the overrides that cut the architecture to the size the
   CPU tests run it at.
+
+and may provide (``pb_core/spec.py`` gives the defaults):
+
+- ``kernels(cfg)``: ``{key: regex}``, the device kernel names of the
+  architecture's hand-written kernels. Both drivers hand them to their
+  traced slice, whose summary then holds each key's launches
+  (``summary["kernels"][key]``: start and device seconds). Default ``{}``.
+- ``kernel_work(cfg, key, slice_rec)``: the ``(FLOPs, bytes)`` of each
+  launch of `key` that the traced slice drove, in order, or None where it
+  cannot say; `slice_rec` is ``rec["slice"]`` as ``drivers/`` record it
+  (score: the documents' lengths; serve: each admission's prompt tokens,
+  each burst's active slots and steps, and the deltas of
+  ``engine.stats()`` over the slice). The arithmetic lives in ``roofline/<kernel>.py``, and a metric
+  ``metrics/<kernel>_roofline.py`` returns
+  ``roofline.share.kernel_share(rec, ctx, key)``. Default None.
 """

@@ -1,7 +1,8 @@
 """The Llama architecture: Mistral-7B and Mixtral-8x7B (a dense or a
 top-k MoE MLP, GQA, RoPE, an optional sliding window) as the port's
 ``models.llama`` runs them. The weight layout and the plain model are
-``reference/llama_ref.py``'s; the FLOP counts are ``roofline/model.py``'s.
+``reference/llama_ref.py``'s; the FLOP counts are ``roofline/model.py``'s,
+K1's operations and bytes ``roofline/flash_attention_k1.py``'s.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 
 from reference.llama_ref import (Reference, embed_buffer, head_buffer,  # noqa: F401
                                  layer_buffer, shapes_of)
+from roofline.flash_attention_k1 import KERNEL_NAME, launch_work
 from roofline.model import decode_flops, prefill_flops, score_flops  # noqa: F401
 
 # The CPU tests' size: a few lanes and two layers.
@@ -104,10 +106,27 @@ def forward(params, tokens, cfg):
 
 
 def k1_launches(cfg, t: int) -> list:
-    """One K1 launch per layer over the whole document."""
+    """The shapes (b, t, heads, head_dim, element bytes, window, sinks) of
+    the K1 launches one scored t-token document makes: one per layer over
+    the whole document."""
     elem = 2 if cfg.dtype == "bfloat16" else 4
     return [(1, t, cfg.n_heads, cfg.head_dim, elem, cfg.sliding_window, cfg.attention_sinks)
             for _ in range(cfg.n_layers)]
+
+
+def kernels(cfg) -> dict:
+    """K1, the port's causal flash attention (``csrc/flash_attention.cu``)."""
+    return {"k1": KERNEL_NAME}
+
+
+def kernel_work(cfg, key: str, slice_rec: dict):
+    """(FLOPs, bytes) of each K1 launch of the documents a score slice
+    scored, in order. The serving engine's slices are not counted: these
+    configurations serve with ``attn_impl="plain"``, which launches no K1."""
+    if key != "k1" or "documents" not in slice_rec:
+        return None
+    return [launch_work(*shape) for t in slice_rec["documents"]
+            for shape in k1_launches(cfg, t)]
 
 
 def tiny(conf: dict) -> dict:

@@ -9,7 +9,8 @@ behind a CUDA event, and the host waits on that event only after queueing
 the next document.
 
 Record: window seconds, tokens scored in it, documents completed, and
-(traced) the K1 launches of a profiled stretch after the window.
+(traced) ``slice``: the lengths of the documents a profiled stretch after
+the window scored, from which the architecture counts its kernels' work.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def run(ctx) -> dict:
             # next documents, profiled.
             n_slice = int(mix.get("trace_documents", 3))
             slice_docs = list(range(n_done, n_done + n_slice))
-            with ctx.tracer.slice({"k1": r"flash_fwd_(bf16|f32)<.*false>"}):
+            with ctx.tracer.slice(arch.kernels(cfg)):
                 pend = None
                 for j in slice_docs:
                     with ctx.tracer.label("portbench.dispatch"):
@@ -123,8 +124,7 @@ def run(ctx) -> dict:
         "k1_launches_window": k1_window,
     }
     if slice_docs:
-        rec["k1_slice_launches"] = [shape for j in slice_docs
-                                    for shape in arch.k1_launches(cfg, docs[j].size)]
+        rec["slice"] = {"documents": [int(docs[j].size) for j in slice_docs]}
 
     picks = check.sample(lengths, int(mix["check"]["documents"]), ctx.seed, lambda t: t)
     ref = arch.Reference(conf, ctx.seed, dev)

@@ -8,7 +8,9 @@ request is one already under way, with a residual output budget
 window opens at the end of that step and closes at the end of the first
 step past ``--seconds``. Requests submitted in the window are followed to
 their end after it (up to ``drain_cap_s``); clients go on through a traced
-slice after the window, then stop.
+slice after the window, then stop. The slice's ``trace_seconds`` count
+from when the profiler runs: its start-up takes seconds on the card. The
+record's ``slice`` says what that slice drove (``EngineRun.since``).
 """
 
 from __future__ import annotations
@@ -63,9 +65,15 @@ def run(ctx) -> dict:
                 idx += 1
         ctx.setup_done()
         t1 = loop_until(lambda end: end >= t0 + ctx.seconds, submit=True)
+        sliced = None
         if ctx.tracer.enabled:
-            trace_until = time.perf_counter() + float(mix.get("trace_seconds", 3))
-            with ctx.tracer.slice():
+            mark = er.mark()
+            with ctx.tracer.slice(ctx.arch.kernels(ctx.cfg)):
+                trace_until = time.perf_counter() + float(mix.get("trace_seconds", 3))
                 loop_until(lambda end: end >= trace_until, submit=True)
+            sliced = er.since(mark)
         er.drain(counted, float(mix["drain_cap_s"]))
-    return er.finish(er.window_record(t0, t1))
+    rec = er.window_record(t0, t1)
+    if sliced is not None:
+        rec["slice"] = sliced
+    return er.finish(rec)

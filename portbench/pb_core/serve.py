@@ -8,7 +8,8 @@ prefill into a scratch and the row install) are wrapped on the instance,
 as ``chip_smoke.py``'s ``drive_engine`` does. They are private names of
 the port: if a later version renames them, the metrics that read them
 (``decode_step_ms``, and ``mfu.serve``'s count of prefilled tokens) come
-out empty or short rather than wrong.
+out empty or short rather than wrong. ``engine.stats()`` (host-only: it
+syncs nothing) is read after every step and before every burst.
 """
 
 from __future__ import annotations
@@ -57,9 +58,9 @@ class EngineRun:
                                     seed=ctx.seed, **eng_kw)
         self.n_slots = self.engine.n_slots
         self.steps_per_sync = self.engine.steps_per_sync
-        self.bursts: list = []    # (start, end) host clock
+        self.bursts: list = []    # (start, end, active slots) host clock
         self.admits: list = []    # (start, end, prompt tokens)
-        self.steps: list = []     # (end, active slots, queued after the step)
+        self.steps: list = []     # (end, engine.stats() after the step)
         self.reqs: list = []
         self._wrap()
         self.mix = mix
@@ -70,10 +71,11 @@ class EngineRun:
         install = getattr(eng, "_install", None)
         if run_burst is not None:
             def timed_burst(*a, **k):
+                active = eng.stats()["active_slots"]
                 with tracer.label("portbench.burst"):
                     t = time.perf_counter()
                     out = run_burst(*a, **k)  # ends in its device-to-host copy
-                    self.bursts.append((t, time.perf_counter()))
+                    self.bursts.append((t, time.perf_counter(), active))
                 return out
             eng._run_burst = timed_burst
         if install is not None:
@@ -111,8 +113,7 @@ class EngineRun:
         with self.ctx.tracer.label("portbench.step"):
             self.engine.step()
         end = time.perf_counter()
-        st = self.engine.stats()
-        self.steps.append((end, st["active_slots"], st["queued"]))
+        self.steps.append((end, self.engine.stats()))
         return end
 
     def warm_up(self, specs: list) -> None:
@@ -135,6 +136,19 @@ class EngineRun:
 
     # ------------------------------------------------------------ window
 
+    def mark(self):
+        """Where the records stand now, for `since`."""
+        return len(self.admits), len(self.bursts), self.engine.stats()
+
+    def since(self, mark) -> dict:
+        """What the engine drove since `mark`: each admission's prompt
+        tokens, each burst's active slots (before it) and steps, and the
+        deltas of ``engine.stats()``."""
+        n_admits, n_bursts, before = mark
+        return {"admits": [n for _, _, n in self.admits[n_admits:]],
+                "bursts": [[a, self.steps_per_sync] for _, _, a in self.bursts[n_bursts:]],
+                "stats": stats_delta(before, self.engine.stats())}
+
     def window_record(self, t0: float, t1: float) -> dict:
         """Counts and samples of the window [t0, t1] (both step ends)."""
         conf, arch = self.ctx.conf, self.ctx.arch
@@ -153,6 +167,7 @@ class EngineRun:
         tpot = [(r.last_at - r.first_at) * 1e3 / (r.n - 1)
                 for r in counted if r.done and r.n > 1]
         in_win = lambda e: t0 < e <= t1  # noqa: E731
+        at = {e: st for e, st in self.steps}
         return {
             "window_s": t1 - t0,
             "attempted": len(counted),
@@ -160,10 +175,12 @@ class EngineRun:
             "output_tokens": out_tokens,
             "model_flops": flops,
             "tpot_ms": tpot,
-            "burst_ms": [(e - s) * 1e3 for s, e in self.bursts if in_win(e)],
-            "occupancy": [a / self.n_slots for e, a, _ in self.steps if in_win(e)],
-            "queued": [q for e, _, q in self.steps if in_win(e)],
+            "burst_ms": [(e - s) * 1e3 for s, e, _ in self.bursts if in_win(e)],
+            "occupancy": [st["active_slots"] / self.n_slots for e, st in self.steps
+                          if in_win(e)],
+            "queued": [st["queued"] for e, st in self.steps if in_win(e)],
             "steps_per_sync": self.steps_per_sync,
+            "stats_window": stats_delta(at[t0], at[t1]),
         }
 
     def drain(self, until_done, cap_s: float) -> None:
@@ -199,6 +216,12 @@ class EngineRun:
         numbers["requests_compared"] = len(pairs)
         rec["numbers"] = numbers
         return rec
+
+
+def stats_delta(before: dict, after: dict) -> dict:
+    """after - before, for each number of ``engine.stats()``."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
 
 
 def residual_budgets(specs: list, seed: int) -> list:

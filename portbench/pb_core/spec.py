@@ -59,14 +59,26 @@ def limits(cell: str, look_in=()) -> dict:
     return _json(_find("limits", f"{cell}.json", look_in))["numbers"]
 
 
-# What an architecture module provides (arch/__init__.py).
+# What an architecture module provides (arch/__init__.py), and the
+# defaults of what it may leave out.
 ARCH_CONTRACT = ("port_config", "build_params", "forward", "Reference", "score_flops",
-                 "prefill_flops", "decode_flops", "k1_launches", "tiny")
+                 "prefill_flops", "decode_flops", "tiny")
+
+
+def _no_kernels(cfg) -> dict:
+    return {}
+
+
+def _no_kernel_work(cfg, key, slice_rec):
+    return None
+
+
+ARCH_DEFAULTS = {"kernels": _no_kernels, "kernel_work": _no_kernel_work}
 
 
 def arch(conf: dict, look_in=()):
     """The architecture module the configuration file names by its
-    ``"arch"`` key."""
+    ``"arch"`` key, with ``ARCH_DEFAULTS`` for the entries it leaves out."""
     if "arch" not in conf:
         raise SystemExit(f"portbench: configuration {conf.get('name')!r} has no \"arch\" "
                          "key: name its module in portbench/arch/")
@@ -74,6 +86,9 @@ def arch(conf: dict, look_in=()):
     missing = [n for n in ARCH_CONTRACT if not hasattr(module, n)]
     if missing:
         raise SystemExit(f"portbench: arch/{conf['arch']}.py lacks {', '.join(missing)}")
+    for name, default in ARCH_DEFAULTS.items():
+        if not hasattr(module, name):
+            setattr(module, name, default)
     return module
 
 

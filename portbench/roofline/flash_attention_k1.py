@@ -7,7 +7,7 @@ visible, 2 + 2 FLOPs per pair and head lane. Bytes: q, k and v read once
 and the output written once, as the kernel takes them (k and v already
 expanded to the query heads). Copied from ``chip_smoke.py``'s
 ``causal_pairs`` / ``bound`` arithmetic, with the pair count in closed
-form.
+form. The least time of a launch is ``roofline/share.py``'s.
 """
 
 from __future__ import annotations
@@ -38,9 +38,3 @@ def launch_work(b: int, t: int, h: int, d: int, elem: int, window: int = 0,
     flops = 4.0 * b * h * d * causal_pairs(t, window, sinks)
     nbytes = 4.0 * b * t * h * d * elem
     return flops, nbytes
-
-
-def bound_s(flops: float, nbytes: float, peaks: dict) -> float:
-    """The least time the card could take: the larger of operations over
-    the bf16 peak and bytes over the HBM peak."""
-    return max(flops / peaks["bf16_flops"], nbytes / peaks["hbm_bytes_per_s"])

@@ -44,7 +44,7 @@ from pb_core.trace import Tracer  # noqa: E402
 class Context:
     """What a driver gets: the cell's data, its architecture module
     (``arch/<arch>.py``: the port's model, forward, reference, FLOP counts
-    and K1 shapes), the device, the clock marks."""
+    and the kernels it names), the device, the clock marks."""
 
     def __init__(self, torch, device, bench, cell, conf, seed, seconds, trace,
                  variant=None, conf_overrides=None, mix_overrides=None,
@@ -143,6 +143,10 @@ def run_cell(bench, cell_name, seed, seconds, trace, *, device=None, variant=Non
         info["k1_launches_window"] = rec["k1_launches_window"]
     if trace and ctx.tracer.summary is not None:
         info["device_event_kinds"] = ctx.tracer.summary["device_event_kinds"]
+        info["span_device_s"] = ctx.tracer.summary["span_device_s"]
+    for key in ("stats_window", "slice"):
+        if key in rec:
+            info[key] = rec[key]
     if rec.get("queued"):
         q = rec["queued"]
         info["queue"] = {"first": q[0], "last": q[-1], "max": max(q),

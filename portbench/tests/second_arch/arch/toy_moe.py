@@ -4,11 +4,14 @@ file speaks another dialect than Llama's (``num_experts``,
 ``head_dim``; no ``rope_theta``, no ``num_local_experts``). It runs the
 port's Llama underneath, through the benchmark's own llama module, so
 what it shows is that the harness reads a configuration only through its
-architecture module."""
+architecture module. It declares a kernel of its own (``kernels``,
+``kernel_work``), so that a test can see its pattern reach both drivers'
+traced slices."""
 
 from __future__ import annotations
 
 from pb_core import spec
+from roofline.flash_attention_k1 import launch_work
 
 _llama = spec.arch({"arch": "llama"})
 
@@ -36,7 +39,23 @@ def build_params(conf, seed, device, cfg=None):
 
 
 forward = _llama.forward
-k1_launches = _llama.k1_launches
+
+# A kernel no card runs: its pattern only has to reach the traced slice.
+TOY_KERNEL = r"toy_attention<"
+
+
+def kernels(cfg):
+    return {"toy_attn": TOY_KERNEL}
+
+
+def kernel_work(cfg, key, slice_rec):
+    """One launch per layer over each scored document or admitted prompt,
+    counted as K1 counts a causal launch."""
+    lengths = slice_rec.get("documents") or slice_rec.get("admits")
+    if key != "toy_attn" or not lengths:
+        return None
+    return [launch_work(1, t, cfg.n_heads, cfg.head_dim, 2)
+            for t in lengths for _ in range(cfg.n_layers)]
 
 
 class Reference(_llama.Reference):

@@ -1,16 +1,21 @@
 """The architecture seam (arch/__init__.py): a configuration reaches the
 harness only through the module its "arch" key names. A second,
 test-only architecture (second_arch/, found through `look_in`) runs a
-score cell and a serve cell to `correct`; the llama module's FLOP counts
-and K1 launch list are pinned at the published sizes."""
+score cell and a serve cell to `correct`, and the kernel pattern it
+declares reaches both drivers' traced slices; one that declares none runs
+them too. The llama module's FLOP counts and K1 launch list are pinned at
+the published sizes."""
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import pytest
 
 from tiny import BENCH, TESTS, run_tiny
 
 from pb_core import spec  # noqa: E402
+from pb_core.trace import Tracer  # noqa: E402
 
 SEED = 2**31 + 6131
 SECOND = TESTS / "second_arch"
@@ -38,6 +43,44 @@ def test_second_architecture_runs_correct(cell):
     result, _, _, _ = run_tiny(cell, SEED, bench=bench, look_in=(SECOND,))
     assert result["correct"], result["checks"]
     assert result["attempted"] > 0 and result["failed"] == 0
+
+
+@pytest.mark.parametrize("cell", ["toy-moe.score-long", "toy-moe.serve-batch"])
+@pytest.mark.parametrize("arch,declared", [("toy_moe", {"toy_attn": "toy_attention<"}),
+                                           ("toy_moe_bare", {})],
+                         ids=["declares-a-kernel", "declares-none"])
+def test_both_drivers_trace_what_the_architecture_declares(monkeypatch, cell, arch, declared):
+    seen = []
+
+    @contextmanager
+    def spy(self, kernel_patterns=None):
+        seen.append(kernel_patterns)
+        yield
+
+    monkeypatch.setattr(Tracer, "slice", spy)
+    result, _, _, rec = run_tiny(cell, SEED, trace=True, bench=_second_bench(),
+                                 look_in=(SECOND,), arch=arch)
+    assert seen == [declared]
+    assert result["correct"], result["checks"]
+    assert result["attempted"] > 0 and result["failed"] == 0
+    sliced = rec["slice"]
+    if cell.endswith("score-long"):
+        assert len(sliced["documents"]) == 3 and min(sliced["documents"]) >= 24
+        return
+    # The CPU captures no graph: every burst runs eagerly, and the counters'
+    # deltas agree with the bursts the harness timed.
+    assert sliced["admits"] and sliced["bursts"]
+    assert sliced["stats"]["eager_bursts"] == len(sliced["bursts"])
+    assert sliced["stats"]["graph_bursts"] == 0
+    assert all(steps == 4 and 0 < active <= 6 for active, steps in sliced["bursts"])
+    window = rec["stats_window"]
+    assert window["eager_bursts"] + window["graph_bursts"] == len(rec["burst_ms"]) > 0
+
+
+def test_an_architecture_gets_the_optional_entries_defaults():
+    module = spec.arch({"arch": "toy_moe_bare"}, (SECOND,))
+    assert module.kernels(None) == {}
+    assert module.kernel_work(None, "k1", {"documents": [10]}) is None
 
 
 def test_a_configuration_without_arch_is_refused():

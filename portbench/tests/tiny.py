@@ -36,10 +36,11 @@ def conf_overrides(cell: str, bench=None, look_in=()) -> dict:
 
 
 def run_tiny(cell: str, seed: int, *, seconds: float = 1.0, trace: bool = False,
-             variant=None, bench=None, look_in=()):
+             variant=None, bench=None, look_in=(), arch=None):
     """One run of the cell at the tiny size on the CPU:
     (result, check lines, other numbers, record). `bench` and `look_in`
-    let a test run cells of its own (``pb_core/spec.py``)."""
+    let a test run cells of its own (``pb_core/spec.py``); `arch` runs
+    the cell's configuration through another architecture module."""
     import torch
 
     import run
@@ -49,6 +50,9 @@ def run_tiny(cell: str, seed: int, *, seconds: float = 1.0, trace: bool = False,
     torch.set_num_threads(1)
     bench = bench or spec.load_benchmark()
     mix = json.loads(tiny_mix_path(cell, look_in).read_text())
+    overrides = conf_overrides(cell, bench, look_in)
+    if arch is not None:
+        overrides["arch"] = arch
     return run.run_cell(bench, cell, seed, seconds, trace, device="cpu",
-                        conf_overrides=conf_overrides(cell, bench, look_in),
+                        conf_overrides=overrides,
                         mix_overrides=mix, variant=variant, look_in=look_in)
